@@ -1,17 +1,18 @@
-"""ProxQP-family fleet throughput (second solver family, VERDICT item 7).
+"""ProxQP-family fleet throughput (the second solver family).
 
     python benchmarks/proxqp_fleet.py [--batch 512] [--n 512] [--rho ...]
+    python benchmarks/proxqp_fleet.py --headline
 
 Generates a fleet of random split-form QPs on device (dense P, A eq rows,
-C ineq rows — the shape of ProxQP001.jl's demo, :65-100), solves with the
-prox-ALM at eps 1e-4, reports solves/s plus a factor/iterate time split.
-Diagnostics on stderr.
+C ineq rows — the shape of ProxQP001.jl's demo, :65-100;
+problems/generator.device_split_qp_fleet), solves with the prox-ALM at eps
+1e-4, reports solves/s plus a factor time. Diagnostics on stderr; one JSON
+line on stdout naming the device.
 """
 
 from __future__ import annotations
 
 import argparse
-import functools
 import os
 import sys
 import time
@@ -23,47 +24,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
-
-
-def hard_sync(x):
-    return float(np.asarray(x.ravel()[0]))
-
-
-def device_fleet(batch, n, me, mi, seed):
-    import jax
-    import jax.numpy as jnp
-
-    import quadraticprogramsolver_tpu as qps
-
-    @functools.partial(jax.jit, static_argnums=(1, 2, 3))
-    def gen(key, batch, rows, cols):
-        return jax.random.normal(key, (batch, rows, cols), jnp.float32)
-
-    key = jax.random.PRNGKey(seed)
-    M = gen(key, batch, n, n)
-
-    @jax.jit
-    def gram(M):
-        return (jnp.einsum("bki,bkj->bij", M, M, precision="highest") / n
-                + jnp.eye(M.shape[-1], dtype=jnp.float32))
-
-    P = gram(M)
-    A = gen(jax.random.fold_in(key, 1), batch, me, n)
-    C = gen(jax.random.fold_in(key, 2), batch, mi, n)
-    assert A.shape == (batch, me, n) and C.shape == (batch, mi, n)
-
-    @jax.jit
-    def vecs(key, A, C):
-        xf = jax.random.normal(key, (batch, n), jnp.float32)
-        q = jax.random.normal(jax.random.fold_in(key, 1), (batch, n), jnp.float32)
-        b = jnp.einsum("bij,bj->bi", A, xf)
-        d = jnp.einsum("bij,bj->bi", C, xf) + 1.0
-        return q, b, d
-
-    q, b, d = vecs(jax.random.fold_in(key, 3), A, C)
-    from quadraticprogramsolver_tpu.core.problem import ProxQPProblem
-
-    return ProxQPProblem(P=P, q=q, A=A, b=b, C=C, d=d)
 
 
 def main(argv=None):
@@ -82,44 +42,34 @@ def main(argv=None):
                         "eps below the bar to pass the audit at large B)")
     p.add_argument("--sigma-free", action="store_true",
                    help="exact-ALM column cache {Ga, Gc, g} instead of the "
-                        "explicit M^{-1} (ProxQPSettings.sigma_free_rhs) — "
-                        "the config that fits B=4096 in HBM; forces refine=0")
-    p.add_argument("--lanes", type=int, default=1,
-                   help="ProxQPSettings.chunk_lanes — lanes interleaved per "
-                        "grid step of the fused chunk kernel")
-    p.add_argument("--dot-high", action="store_true",
-                   help="ProxQPSettings.chunk_dot_precision='high' — manual "
-                        "3-pass bf16x3 iterate dots (needs --sigma-free; "
-                        "pair with --lanes 2)")
-    p.add_argument("--first-default", action="store_true",
-                   help="first_chunk_dot_precision='default' — 1-pass bf16 "
-                        "dots for the first chunk only (precision schedule)")
+                        "explicit M^{-1} (ProxQPSettings.sigma_free_rhs); "
+                        "forces refine=0")
     p.add_argument("--headline", action="store_true",
-                   help="the promoted round-5 headline stack in one flag: "
-                        "B=4096 n=512, sigma-free, lanes=2, bf16x3 dots + "
-                        "first-chunk schedule, static rho=0.0125, ci=25, "
-                        "eps 5e-5 (12,887 solves/s, audit 4.2e-5)")
+                   help="the headline stack in one flag (chip_smoke.py "
+                        "phase 3): B=4096 n=512, sigma-free, static "
+                        "rho=0.0125, ci=25, eps 5e-5")
     args = p.parse_args(argv)
     if args.headline:
         args.batch, args.n = 4096, 512
-        args.sigma_free = args.dot_high = args.first_default = True
-        args.no_adapt = True
-        args.lanes, args.rho, args.ci, args.eps = 2, 0.0125, 25, 5e-5
+        args.sigma_free = args.no_adapt = True
+        args.rho, args.ci, args.eps = 0.0125, 25, 5e-5
     if args.sigma_free:
         args.refine = 0
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
     import quadraticprogramsolver_tpu as qps
     from quadraticprogramsolver_tpu.models import proxqp
+    from quadraticprogramsolver_tpu.problems.generator import (
+        device_split_qp_fleet)
+    from quadraticprogramsolver_tpu.utils.compile_cache import (
+        enable_compile_cache)
 
-    on_tpu = jax.default_backend() == "tpu"
-    log(f"device: {jax.devices()[0]}")
-    prob = device_fleet(args.batch, args.n, args.me, args.mi, seed=0)
-    hard_sync(prob.P)
+    enable_compile_cache()
+    dev = jax.devices()[0]
+    log(f"device: {dev}")
+    prob = jax.block_until_ready(
+        device_split_qp_fleet(args.batch, args.n, args.me, args.mi, seed=0))
     log(f"fleet B={args.batch} n={args.n} me={args.me} mi={args.mi} generated")
 
     rhos = (0.03, 0.1, 0.3, 1.0) if args.sweep_rho else (args.rho,)
@@ -129,18 +79,12 @@ def main(argv=None):
             max_iterations=2000, eps_abs=args.eps, eps_rel=args.eps, rho=rho,
             adaptive_rho=not args.no_adapt, kkt_warm_start=False,
             kkt_refinement_steps=args.refine, check_interval=args.ci,
-            sigma_free_rhs=args.sigma_free,
-            fused_chunk=on_tpu, chunk_lanes=args.lanes,
-            chunk_dot_precision="high" if args.dot_high else "highest",
-            first_chunk_dot_precision=("default" if args.first_default
-                                       else None))
-        sol = proxqp.solve_jit(prob, st)   # compile + warmup
-        hard_sync(sol.x)
+            sigma_free_rhs=args.sigma_free)
+        jax.block_until_ready(proxqp.solve_jit(prob, st))  # compile + warmup
         dt = None
         for _ in range(3):
             t0 = time.perf_counter()
-            sol = proxqp.solve_jit(prob, st)
-            hard_sync(sol.x)
+            sol = jax.block_until_ready(proxqp.solve_jit(prob, st))
             t = time.perf_counter() - t0
             dt = t if dt is None else min(dt, t)
         conv = int(np.asarray(sol.info.converged).sum())
@@ -181,9 +125,8 @@ def main(argv=None):
         # True f64 KKT residuals of the RETURNED iterates vs the residuals
         # the DEVICE reported at exit: if the device number is honest, any
         # audit miss is a residual->solution conditioning gap (remedy:
-        # tighten eps); if the device number is optimistic, the f32/bf16
-        # check products are misreporting (a accuracy bug). Diagnostic for
-        # the r4 adaptive-rho audit failure.
+        # tighten eps); if the device number is optimistic, the f32 check
+        # products are misreporting (an accuracy bug).
         P64 = np.asarray(prob.P[i], np.float64)
         A64 = np.asarray(prob.A[i], np.float64)
         C64 = np.asarray(prob.C[i], np.float64)
@@ -219,31 +162,18 @@ def main(argv=None):
         "benchmark": "proxqp_fleet", "batch": args.batch, "n": args.n,
         "me": args.me, "mi": args.mi, "eps": args.eps, "rho": best_rho,
         "refine": args.refine, "check_interval": args.ci,
-        "adaptive_rho": not args.no_adapt, "chunk_lanes": args.lanes,
-        "chunk_dot_precision": "high" if args.dot_high else "highest",
+        "adaptive_rho": not args.no_adapt, "sigma_free": args.sigma_free,
         "iters_p50": float(np.median(iters_all)),
         "iters_max": int(iters_all.max()),
         "converged": int(conv_mask.sum()),
         "solves_per_s": best[0], "audit_inf": audit,
         "audit_lanes": len(devs), "audit_pass_1e-4": bool(audit <= 1e-4),
-        "audit_f64_res_prim": worst_true[0], "audit_f64_res_dual": worst_true[1]}
-    print(json.dumps(result))
-    # Headline-config artifact (schema-guarded JSONL — VERDICT r3 weak #6:
-    # the 4174/s configuration must be recoverable from a committed file).
-    try:
-        from quadraticprogramsolver_tpu.bench.harness import (
-            append_headline_record)
-
-        rec = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "results", "proxqp_fleet.jsonl")
-        append_headline_record(rec, result)
-        log(f"headline record appended to {rec}")
-    except Exception as e:
-        log(f"headline record NOT written: {type(e).__name__}: {e}")
-
-    # Stage split: factor (M build + inverse / sigma-free cache) vs one
-    # chunk of iterations. The timing program reduces to one scalar so the
-    # factor's output never doubles as a live HBM buffer (bench.py lesson).
+        "audit_f64_res_prim": worst_true[0], "audit_f64_res_dual": worst_true[1],
+        "platform": dev.platform, "device_kind": dev.device_kind,
+        "device_count": len(jax.devices())}
+    # Factor stage (M build + inverse / sigma-free cache) alone. The timing
+    # program reduces to one scalar so the factor's output never doubles as
+    # a live device buffer.
     import jax.numpy as jnp
 
     sigma = jnp.asarray(1e-6, jnp.float32)
@@ -258,9 +188,13 @@ def main(argv=None):
                 return sum(v.ravel()[0] for v in cache.values())
             return proxqp._build_M_inv(prob, rho_v, sigma).ravel()[0]
 
-    hard_sync(factor_only(prob, rho_v))
-    t0 = time.perf_counter(); hard_sync(factor_only(prob, rho_v)); tf = time.perf_counter() - t0
+    jax.block_until_ready(factor_only(prob, rho_v))
+    t0 = time.perf_counter()
+    jax.block_until_ready(factor_only(prob, rho_v))
+    tf = time.perf_counter() - t0
     log(f"factor ({'sigma-free cache' if args.sigma_free else 'M build + inverse'}): {tf*1e3:.0f} ms")
+    result["factor_ms"] = tf * 1e3
+    print(json.dumps(result))
     return 0
 
 

@@ -1,8 +1,8 @@
-"""Example: solve a fleet of portfolio-optimization QPs on one chip.
+"""Example: solve a fleet of portfolio-optimization QPs on one device.
 
 The reference solves one portfolio instance at a time
 (GenerateQuadraticProgram.jl:37-47 builds it; RunTests.jl solves it); the
-TPU-native workflow batches hundreds of scenarios into one compiled solve.
+batched workflow solves hundreds of scenarios in one compiled program.
 
     python examples/portfolio_fleet.py
 """

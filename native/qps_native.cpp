@@ -9,8 +9,8 @@
 // tree algorithm (Liu '86 etree; up-looking row factorization as in Davis,
 // "Direct Methods for Sparse Linear Systems").
 //
-// Used host-side by the float64 test oracle and CPU fallback paths; the TPU
-// compute path uses the batched dense Pallas/XLA kernels instead (SURVEY.md
+// Used host-side by the float64 test oracle and CPU fallback paths; the
+// device compute path uses batched dense XLA ops instead (SURVEY.md
 // "native components" table).
 //
 // Input convention: the UPPER-triangular part (including the diagonal) of a

@@ -1,8 +1,9 @@
-"""quadraticprogramsolver_tpu — a TPU-native batched QP solver framework.
+"""quadraticprogramsolver_tpu — a batched QP solver framework for accelerators.
 
-Ground-up JAX/XLA/Pallas re-design of the capabilities of
+Ground-up JAX/XLA re-design of the capabilities of
 RoyiAvital/QuadraticProgramSolver (OSQP-style ADMM + ProxQP-style prox-ALM,
-pluggable KKT backends, 9-class benchmark generator) for TPU fleets of QPs.
+pluggable KKT backends, 9-class benchmark generator) for fleets of QPs on
+one GPU or a mesh of them.
 See SURVEY.md at the repo root for the structural map of the reference.
 """
 

@@ -6,12 +6,12 @@ The canonical form matches the reference solver's
 
     min_x  0.5 x'Px + q'x   s.t.   l <= Ax <= u,   P PSD.
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 * Problems are stored **dense and batched**: every array carries an optional
   leading batch axis ``(B, ...)`` so thousands of independent QPs run as one
-  XLA program (batched matmuls on the MXU). The reference solves one sparse
-  problem at a time on CPU; on TPU the dominant axis of scale is the fleet of
+  XLA program (batched matmuls). The reference solves one sparse problem at
+  a time on CPU; on an accelerator the dominant axis of scale is the fleet of
   independent instances (MPC/scenario batches), so batching is built into the
   problem type rather than bolted on via ``vmap`` of scalar code.
 * Shapes are static. Fleets of mixed sizes are zero-padded to a common
@@ -163,7 +163,7 @@ def pad_qp(qp: QP, n_pad: int, m_pad: int) -> QP:
 
     Padded variables get P[i,i]=1, q[i]=0 (their optimum is 0 and they couple
     to nothing); padded constraint rows are all-zero with bounds (-inf, +inf)
-    so the projection never binds and the dual stays 0. This is the TPU
+    so the projection never binds and the dual stays 0. This is the batched
     replacement for the reference's per-problem dynamic sizes — static shapes
     let fleets of heterogeneous QPs share one compiled executable.
     """
@@ -191,18 +191,6 @@ def pad_qp(qp: QP, n_pad: int, m_pad: int) -> QP:
     u = jnp.concatenate(
         [qp.u, jnp.full(batch + (dm,), jnp.inf, dt)], axis=-1) if dm else qp.u
     return QP(P, q, A, l, u)
-
-
-#: Eagerly-dispatched padding programs for CONCRETE fleets (outside any
-#: enclosing jit). Padding inside the solve program holds the argument fleet
-#: and its padded copy live in one memory plan — at the BASELINE shape
-#: (n=500, B=4096) that is 19.3 of 15.75 GiB (round-4 OOM). As a separate
-#: program the pad's transient is bounded, and the donating variant frees
-#: each original leaf as its padded copy lands, leaving only the padded
-#: fleet resident for the solve. Donation invalidates the caller's arrays —
-#: opt-in (models/admm.solve_jit `donate_pad`).
-pad_qp_jit = jax.jit(pad_qp, static_argnums=(1, 2))
-pad_qp_donating = jax.jit(pad_qp, static_argnums=(1, 2), donate_argnums=(0,))
 
 
 @_pytree_dataclass
@@ -293,40 +281,3 @@ def make_proxqp(P, q, A, b, C, d, dtype=None) -> ProxQPProblem:
     if dtype is not None:
         arrs = [np.asarray(x, dtype=dtype) for x in arrs]
     return ProxQPProblem(*(jnp.asarray(x) for x in arrs))
-
-
-def pad_proxqp(prob: ProxQPProblem, n_pad: int, me_pad: int,
-               mi_pad: int) -> ProxQPProblem:
-    """Zero-pad a split-form QP to static shapes without changing its solution.
-
-    Padded variables get P[i,i]=1, q[i]=0 (optimum 0, uncoupled); padded
-    equality rows are 0=0 (dual stays at its 0 init) and padded inequality
-    rows are 0<=0 with s=z=0 fixed points of the prox-ALM updates. Lets the
-    fused Pallas chunk (128-multiple shapes) run on arbitrary problem sizes.
-    """
-    n, me, mi = prob.n, prob.n_eq, prob.n_ineq
-    if n_pad < n or me_pad < me or mi_pad < mi:
-        raise ValueError(
-            f"pad target ({n_pad},{me_pad},{mi_pad}) smaller than ({n},{me},{mi})")
-    if (n_pad, me_pad, mi_pad) == (n, me, mi):
-        return prob
-    dn, de, di = n_pad - n, me_pad - me, mi_pad - mi
-    batch = prob.batch_shape
-    dt = prob.dtype
-
-    def bpad(x, pads):
-        return jnp.pad(x, [(0, 0)] * len(batch) + pads)
-
-    P = bpad(prob.P, [(0, dn), (0, dn)])
-    if dn:
-        eye = jnp.zeros((n_pad, n_pad), dt).at[
-            jnp.arange(n, n_pad), jnp.arange(n, n_pad)].set(1.0)
-        P = P + jnp.broadcast_to(eye, P.shape)
-    return ProxQPProblem(
-        P=P,
-        q=bpad(prob.q, [(0, dn)]),
-        A=bpad(prob.A, [(0, de), (0, dn)]),
-        b=bpad(prob.b, [(0, de)]),
-        C=bpad(prob.C, [(0, di), (0, dn)]),
-        d=bpad(prob.d, [(0, di)]),
-    )

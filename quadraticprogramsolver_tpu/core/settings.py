@@ -28,7 +28,8 @@ class KKTBackendKind(enum.Enum):
 
     AUTO = "auto"
     #: Batched dense Cholesky of the SPD normal matrix P + sigma*I + rho*A'A,
-    #: cached inverse so per-iteration solves are pure MXU matmuls.
+    #: cached inverse (or sigma-free G = M^{-1}A') so per-iteration solves
+    #: are batched matvecs.
     CHOLESKY = "cholesky"
     #: Batched dense signed-LDL' of the quasi-definite 2x2 KKT matrix
     #: [[P+sigma*I, A'], [A, -I/rho]] — the OSQP-paper factorization.
@@ -96,7 +97,7 @@ class Settings:
     polish_eps: float = 1e-6            # m:104 minresEps
     polish_max_krylov: int = 500        # m:105 minresItr
     cg_eps: float = 1e-9                # m:102 pcgEps
-    cg_max_iterations: int = 200        # m:103 pcgItr (TPU: static bound, see kkt.py)
+    cg_max_iterations: int = 200        # m:103 pcgItr (static bound, see kkt.py)
     #: Relative inner tolerance for the CG KKT backend: stop at
     #: cg_rel_eps * ||r0|| as well as cg_eps (inexact-ADMM forcing term;
     #: with the warm-started solution carry the inner accuracy tightens
@@ -104,55 +105,10 @@ class Settings:
     #: reference's fixed-abstol behavior (m:102).
     cg_rel_eps: float = 0.0
     kkt_backend: KKTBackendKind = KKTBackendKind.AUTO
-    #: Extra iterative-refinement passes on each KKT solve. On TPU the factor
-    #: lives in f32; one refinement step restores most of the accuracy the
-    #: f64 reference gets for free. 0 disables.
+    #: Extra iterative-refinement passes on each KKT solve. In f32 the
+    #: cached factor loses digits; one refinement step restores most of the
+    #: accuracy the f64 reference gets for free. 0 disables.
     kkt_refinement_steps: int = 1
-    #: Run each check-interval chunk as one fused Pallas kernel (per-lane
-    #: matrices resident in VMEM across all iterations of the chunk — ~K*2.5x
-    #: less HBM traffic than per-iteration matvecs). Requires the dense
-    #: CHOLESKY backend, float32, one batch axis, and n/m multiples of 128
-    #: (pad_qp); silently falls back to the XLA chunk otherwise.
-    #: kkt_refinement_steps apply inside the fused chunk as well.
-    fused_chunk: bool = False
-    #: Lanes interleaved per grid step of the fused chunk kernel. A single
-    #: lane's iteration is a chain of dependent (1, n) dots that leave the
-    #: MXU idle between stages; packing independent lanes gives the
-    #: scheduler overlap. Measured on-chip (round 4, B=4096 sigma-free):
-    #: 96.9 / 95.5 / 91.0 ms per 13-iteration chunk at 1 / 2 / 4 lanes
-    #: (lanes=8 exceeds VMEM and fails remote compile). Costs: B must be
-    #: divisible by it (else the solver silently falls back to 1), and a
-    #: pack runs while ANY of its lanes is active, so straggler chunks do
-    #: up to `chunk_lanes` x the minimal work (irrelevant at fleet sizes
-    #: where stragglers are <1% of lanes). 1 = the conservative default.
-    chunk_lanes: int = 1
-    #: MXU passes for the fused chunk's ITERATE dots (check products stay
-    #: HIGHEST). "highest" = 6-pass full f32. "high" = manual 3-pass
-    #: bf16x3 split written inside the kernel (Mosaic rejects XLA's HIGH,
-    #: but ah*bh + ah*bl + al*bh by hand lowers fine) — the chunk is
-    #: MXU-pass-bound, measured 86.1 -> 62.3 ms per 12-iteration chunk at
-    #: B=4096/lanes=2, with 8e-6 relative iterate deviation after 12
-    #: coupled iterations (~f32; the dropped lo*lo term is ~2^-32).
-    #: Requires sigma_free_rhs + fused_chunk; lanes=4 with "high" exceeds
-    #: VMEM (the bf16 halves double the resident matrix bytes) — use
-    #: lanes=2. Off ("highest") by default: opt in per workload and check
-    #: the audit, as the reference's accuracy discipline demands.
-    chunk_dot_precision: str = "highest"
-    #: Precision SCHEDULE: run the FIRST chunk's iterate dots at this
-    #: precision (e.g. "default" = one bf16 MXU pass, measured 43.1 vs the
-    #: bf16x3 62.3 ms per 12-iteration chunk) and later chunks at
-    #: chunk_dot_precision. Rationale: early ADMM iterations are far from
-    #: the fixed point, where ~1e-2-relative product noise only perturbs a
-    #: trajectory that is still contracting; the convergence checks always
-    #: evaluate honest full-precision residuals, so a lane can only exit
-    #: when the ACTUAL iterate passes eps. Risk (measure per family): if
-    #: the noisy first chunk delays contraction, lanes spill into an extra
-    #: chunk and the saving inverts. None disables (uniform precision).
-    #: Requires the fused sigma-free chunk. Note solve_segmented restarts
-    #: the chunk counter per segment, so every SEGMENT's first chunk runs
-    #: cheap — near-converged continuation segments would pay extra
-    #: iterations; leave this off for segmented solves.
-    first_chunk_dot_precision: str | None = None
     #: Record per-check residuals/rho into SolveInfo.history (device-side
     #: trace buffers of shape (num_checks, *B)).
     record_history: bool = False
@@ -168,27 +124,25 @@ class Settings:
     #: on UNSCALED residuals (OSQP's discipline; rho adaptation uses scaled
     #: residuals); reported residuals/objective are unscaled.
     scaling_iters: int = 0
-    #: Matmul accumulation for f32 solves on TPU: "highest" = full f32
-    #: (6 bf16 MXU passes), "high" = bf16x3 (~f32 accuracy for
-    #: well-conditioned products, ~2x faster on the factor path). Irrelevant
-    #: on CPU/f64.
+    #: Matmul precision for f32 solves (jax.default_matmul_precision).
+    #: "highest" = full FP32 (on the GPU: outside the tensor cores);
+    #: "default" lets XLA use TF32, which keeps about three decimal digits
+    #: and stalls ADMM well above a 1e-4 tolerance. Irrelevant on CPU/f64.
     matmul_precision: str = "highest"
-    #: Matmul accumulation for the normal-matrix build + SPD inverse only
-    #: (the factor path — the dominant setup cost). "default" (one bf16 MXU
-    #: pass, ~6x fewer passes than "highest") turns the cached M^{-1} into an
-    #: approximate inverse; pair it with kkt_refinement_steps >= 1, whose
-    #: residual is computed against the TRUE M from P and A at in-kernel
-    #: HIGHEST precision, so the KKT solves still converge to full-f32
-    #: solutions. None inherits matmul_precision.
+    #: Matmul precision for the normal-matrix build + factor only (the
+    #: setup cost). "default" (TF32 on the GPU) turns the cached M^{-1}
+    #: into an approximate inverse; pair it with kkt_refinement_steps >= 1,
+    #: whose residual is computed against the TRUE M from P and A at the
+    #: solve's matmul_precision, so the KKT solves still converge to
+    #: full-f32 solutions. None inherits matmul_precision.
     factor_precision: str | None = None
     #: Sigma-free right-hand side for the dense CHOLESKY backend: drop the
     #: proximal sigma*x term from the KKT RHS, so the x-update becomes
     #:     xx = G (rho z - y) - g,   G = M^{-1} A',  g = M^{-1} q,
     #: i.e. exact (non-proximal) ADMM on P + sigma*I. G and g are computed
-    #: ONCE per factorization by a blocked Gauss-Jordan multi-RHS solve that
-    #: never materializes M^{-1} (ops/spd_kernels.gj_solve_sweep) — the
-    #: factor does ~n^2(n/2+m) macs instead of n^3 + the per-iteration n^2
-    #: matvec, and the hot loop shrinks from 3 dependent matvecs to 2.
+    #: ONCE per factorization by a Cholesky multi-RHS solve that never
+    #: materializes M^{-1} (ops/linalg.spd_solve), and the hot loop shrinks
+    #: from 3 dependent matvecs to 2.
     #: SEMANTICS: the fixed point solves the QP with P replaced by
     #: P + sigma*I, so sigma_for() does NOT apply the f32 floor here — keep
     #: sigma at (or below) its 1e-6 default and only use this on problems
@@ -199,54 +153,6 @@ class Settings:
     #: Requires kkt_refinement_steps == 0 (refinement needs M^{-1}) and the
     #: CHOLESKY (or AUTO-dense) backend.
     sigma_free_rhs: bool = False
-    #: Run the sigma-free factor as fused Pallas kernels (ops/fused_factor):
-    #: the normal-matrix build seeds an augmented slab [M | A' q] in one
-    #: kernel (gram on the MXU in VMEM), and each Gauss-Jordan level updates
-    #: the live trailing column blocks IN PLACE (donated slab) — no
-    #: intermediate (B, n, n) materializations. Numerics identical to the
-    #: unfused gj_solve_sweep; dots pinned to HIGHEST regardless of
-    #: factor_precision. Requires sigma_free_rhs, the dense CHOLESKY
-    #: backend, float32, one batch axis, and n/m multiples of 128; silently
-    #: falls back to the XLA build + gj_solve_sweep otherwise.
-    fused_factor: bool = False
-    #: Pivot-sweep kernel variant for the fused factor's 128-block SPD
-    #: inverses (ops/spd_kernels.pallas_spd_inverse_unrolled): "v3" (the
-    #: round-3 default), or "r2"/"r4"/"r8" — rank-q analytic compositions
-    #: that run 128/q fused full passes per sweep (round-4 candidates for
-    #: the measured per-pass issue floor; see benchmarks/
-    #: pivot_inverse_probe.py for on-chip numbers before switching).
-    pivot_variant: str = "v3"
-    #: Keep the fused factor's slab AS the KKT cache: the fused chunk reads
-    #: G through a block window into the slab and g from a cheap column
-    #: slice, so the (B, n, m) G copy (2 GiB at B=4096, n=512) is never
-    #: materialized — the memory that lets a 4352-lane fleet fit 16 GiB
-    #: HBM. Costs: the slab (k_pad + n columns) stays live through the
-    #: whole solve instead of just the factor, and the refactor branch
-    #: would hold TWO slabs — so this requires adaptive_rho=False (plus
-    #: fused_factor, sigma_free_rhs, fused_chunk, refine=0). Off by
-    #: default; bench.py opts in for its largest fleet.
-    slab_cache: bool = False
-    #: Store the G cache as PRE-SPLIT bf16 halves {Ghi, Glo} instead of
-    #: f32 (or the slab window): with chunk_dot_precision="high" the
-    #: kernel needs exactly these halves anyway, and reading them straight
-    #: from HBM halves the G traffic and VMEM residency — which lets
-    #: lanes=4 fit alongside the bf16x3 dots (53.4 vs 62.3 ms per
-    #: 12-iteration chunk, measured round 4 at B=4096). The split is
-    #: exact (Ghi + Glo reconstructs G to within bf16x2's ~2^-16 — the
-    #: same operands the in-kernel split produces, so solutions match the
-    #: slab_cache+high solve bitwise). Requires fused_factor +
-    #: sigma_free_rhs + fused_chunk + chunk_dot_precision="high" and
-    #: adaptive_rho=False; mutually exclusive with slab_cache.
-    split_cache: bool = False
-    #: Strict mode for the fast paths: raise at setup instead of SILENTLY
-    #: falling back when any requested fused feature (fused_chunk,
-    #: fused_factor, slab/split cache, chunk_lanes interleave) will not
-    #: actually run — wrong dtype/shape, VMEM gate, B % chunk_lanes != 0.
-    #: The gates are all static, so this costs nothing at runtime and turns
-    #: the round-4 misattribution incidents (a benchmark number credited to
-    #: a path that silently fell back) into loud errors. See
-    #: models/plan.py for the introspectable execution plan.
-    require_fused: bool = False
     #: Per-constraint penalty weighting: equality rows (l == u) get
     #: rho * rho_eq_scale (OSQP's vector-rho scheme — the reference's To-Do
     #: #1 "paramRho as a matrix"). 1.0 reproduces the reference's scalar rho.
@@ -254,8 +160,8 @@ class Settings:
     #: Safeguarded Anderson acceleration of the ADMM fixed point (history
     #: depth M; 0 disables). Applied at check boundaries to the chunk map,
     #: guarded by a per-lane residual-decrease test, so it composes with
-    #: every backend (incl. the fused Pallas chunk and the matrix-free
-    #: sparse path) and never degrades a check. Costs ~3 matvecs + an MxM
+    #: every backend (incl. the matrix-free sparse path) and never degrades
+    #: a check. Costs ~3 matvecs + an MxM
     #: solve per check, plus 2*M*(n+m) floats of per-lane history. See
     #: models/anderson.py. Not in the reference (single-problem plain
     #: iteration); biggest wins on slow-converging / tight-tolerance solves.
@@ -268,9 +174,6 @@ class Settings:
             raise ValueError("max_iterations must be positive")
         if self.check_interval < 1:
             raise ValueError("check_interval must be positive")
-        if self.chunk_lanes < 1:
-            raise ValueError("chunk_lanes must be >= 1 (0 would divide by "
-                             "zero in the lane fallback; negatives disable it)")
         if not (0.0 < self.alpha < 2.0):
             raise ValueError("alpha must be in (0, 2)")
         for name in ("eps_abs", "eps_rel", "rho", "sigma", "delta"):
@@ -280,33 +183,6 @@ class Settings:
             raise ValueError(
                 "sigma_free_rhs caches only G = M^{-1}A' and g = M^{-1}q — "
                 "iterative refinement needs M^{-1}; set kkt_refinement_steps=0")
-        if self.slab_cache and not (
-                self.fused_factor and self.sigma_free_rhs and self.fused_chunk
-                and not self.adaptive_rho):
-            raise ValueError(
-                "slab_cache requires fused_factor + sigma_free_rhs + "
-                "fused_chunk and adaptive_rho=False (a rho refactor would "
-                "hold two live slabs — the OOM this flag exists to avoid)")
-        if self.split_cache and (self.slab_cache or not (
-                self.fused_factor and self.sigma_free_rhs and self.fused_chunk
-                and self.chunk_dot_precision == "high"
-                and not self.adaptive_rho)):
-            raise ValueError(
-                "split_cache requires fused_factor + sigma_free_rhs + "
-                "fused_chunk + chunk_dot_precision='high' with "
-                "adaptive_rho=False, and excludes slab_cache")
-        if self.first_chunk_dot_precision is not None:
-            if self.first_chunk_dot_precision not in ("default", "high",
-                                                      "highest"):
-                raise ValueError("first_chunk_dot_precision must be one of "
-                                 "'default'/'high'/'highest'")
-            if not (self.fused_chunk and self.sigma_free_rhs):
-                raise ValueError("first_chunk_dot_precision needs the fused "
-                                 "sigma-free chunk (fused_chunk + "
-                                 "sigma_free_rhs)")
-            if self.split_cache:
-                raise ValueError("first_chunk_dot_precision excludes "
-                                 "split_cache (its G halves force 'high')")
 
     @property
     def eps_admm(self) -> float:
@@ -364,34 +240,11 @@ class ProxQPSettings:
     #: difference: this solver latches converged-once-seen, while the
     #: reference recomputes its flag fresh at the final check.
     early_exit: bool = True
-    #: Run each chunk as one fused Pallas kernel (see Settings.fused_chunk;
-    #: requires f32, one batch axis, and n / n_eq / n_ineq nonzero multiples
-    #: of 128). Falls back to the XLA chunk otherwise.
-    fused_chunk: bool = False
-    #: Lanes interleaved per grid step of the fused prox-ALM chunk kernel
-    #: (see Settings.chunk_lanes — same overlap rationale and costs;
-    #: non-divisible batches fall back to 1).
-    chunk_lanes: int = 1
-    #: Manual 3-pass bf16x3 iterate dots inside the fused prox chunk (see
-    #: Settings.chunk_dot_precision — same trick, same costs; requires
-    #: sigma_free_rhs; pair with chunk_lanes<=2). MORE workload-dependent
-    #: than the ADMM knob: prox-ALM drives rho up and feeds the split
-    #: error into the inner solve, so sub-1e-4 tolerances can stall
-    #: (measured: the B=4096 fleet at eps 5e-5/static rho 0.03 converges
-    #: — 5,955 -> 6,865 solves/s, audit 7.1e-5 — while the adaptive-rho
-    #: CPU test family plateaus at res_prim ~3e-4). Check convergence and
-    #: the audit on YOUR workload before enabling. Off by default.
-    chunk_dot_precision: str = "highest"
-    #: First-chunk precision schedule (see Settings.first_chunk_dot_
-    #: precision — same rationale and risk profile; requires the fused
-    #: sigma-free prox chunk). None disables.
-    first_chunk_dot_precision: str | None = None
     #: Initialize from the equality-KKT solve as the reference does
-    #: (ProxQP.jl:80-90). False starts from zeros — faster at loose
-    #: tolerances on TPU fleets (the batched LU costs more than the saved
-    #: iterations: 865 -> 1254 solves/s at eps 1e-4, B=512 n=512), but at
-    #: tight tolerances on equality-rich problems the warm start is
-    #: load-bearing (measured 25 vs 4000+ iterations at eps 1e-5 with
+    #: (ProxQP.jl:80-90). False starts from zeros — at loose tolerances on
+    #: large fleets the batched LU can cost more than the iterations it
+    #: saves, but at tight tolerances on equality-rich problems the warm
+    #: start is load-bearing (25 vs 4000+ iterations at eps 1e-5 with
     #: n_eq = n). Keep the default unless profiling says otherwise.
     kkt_warm_start: bool = True
     #: Safeguarded Anderson acceleration of the prox-ALM fixed point in
@@ -404,12 +257,11 @@ class ProxQPSettings:
     #: (n, n) M^{-1} — the prox-ALM analogue of Settings.sigma_free_rhs.
     #: The x-update becomes Ga(rho b - y) + Gc(rho(d-s) - z) - g: fewer
     #: dots per iteration AND the per-lane cache shrinks from n^2 to
-    #: (n_eq + n_ineq) n floats, which is what lets B=4096 n=512 fleets fit
-    #: 16 GiB HBM (the M^{-1} path OOMs at B=3072). Requires a dense
-    #: problem, kkt_refinement_steps == 0 (refinement needs M^{-1}), and
+    #: (n_eq + n_ineq) n floats. Requires a dense problem,
+    #: kkt_refinement_steps == 0 (refinement needs M^{-1}), and
     #: M = P + rho(A'A + C'C) invertible WITHOUT the sigma shift (P with a
-    #: PD part). On TPU the factor runs as the in-place slab kernels
-    #: (ops/fused_factor.py) with [A' C' q] assembled in VMEM.
+    #: PD part). The factor is a Cholesky solve for [A' C' q]
+    #: (ops/linalg.spd_solve).
     sigma_free_rhs: bool = False
     #: Detect primal/dual infeasibility from iterate-difference Farkas
     #: certificates in the split form (Ax=b, Cx<=d): primal-infeasible when
@@ -425,27 +277,12 @@ class ProxQPSettings:
     #: trace buffers of shape (num_checks, *B)) — the role of the
     #: reference's commented @printf residual trace (ProxQP.jl:272).
     record_history: bool = False
-    #: Strict fast-path mode (see Settings.require_fused): raise instead of
-    #: silently falling back when a requested fused feature will not run.
-    require_fused: bool = False
 
     def __post_init__(self):
         if self.max_iterations < 1:
             raise ValueError("max_iterations must be positive")
         if self.check_interval < 1:
             raise ValueError("check_interval must be positive")
-        if self.chunk_lanes < 1:
-            raise ValueError("chunk_lanes must be >= 1 (0 would divide by "
-                             "zero in the lane fallback; negatives disable it)")
-        if self.first_chunk_dot_precision is not None:
-            if self.first_chunk_dot_precision not in ("default", "high",
-                                                      "highest"):
-                raise ValueError("first_chunk_dot_precision must be one of "
-                                 "'default'/'high'/'highest'")
-            if not (self.fused_chunk and self.sigma_free_rhs):
-                raise ValueError("first_chunk_dot_precision needs the fused "
-                                 "sigma-free prox chunk (fused_chunk + "
-                                 "sigma_free_rhs)")
 
     @property
     def num_checks(self) -> int:

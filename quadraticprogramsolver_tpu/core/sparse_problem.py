@@ -2,24 +2,21 @@
 
 The reference routes large/sparse problems to PCG instead of factorizing
 (`SolveQuadraticProgram.m:190-204`) and leans on MKL sparse matvecs
-(`SolveQuadraticProgram.jl:5`). The TPU analogue stores P and A in **ELL
+(`SolveQuadraticProgram.jl:5`). The batched analogue stores P and A in **ELL
 format** — every row padded to the matrix's max nonzeros-per-row, giving a
 (rows, k) value array and a (rows, k) column-index array — so a sparse
-matvec is one XLA gather plus dense VPU math:
+matvec is one XLA gather plus dense elementwise math:
 
     y = sum_k vals[:, k] * x[cols[:, k]]
 
-Gathers lower well on TPU. Transposed products A'w avoid scatter entirely by
+Transposed products A'w avoid scatter entirely by
 also storing A' in row-ELL (its own gather). P is stored once (symmetric).
 
 An optional **BCOO storage** (``make_sparse_qp(..., storage="bcoo")``) keeps
 the same operator protocol on `jax.experimental.sparse.BCOO` matrices.
-History: in early round-2 backend builds BCOO matvecs lowered to
-sort/scatter, measured ~1000x slower at n=1e5 and crashed the worker inside
-the full solve — ELL was load-bearing. A backend update fixed the lowering
-(re-tested: 13.8 ms/matvec BCOO vs 19.1 ms ELL at n=1e5, nnz=1e6 — ELL pays
-for padding every row to the max row count). ELL remains the default until
-BCOO has soaked longer in-solve; both are covered by tests.
+ELL pays for padding every row to the max row count; BCOO does not, and is
+what the n=1e5 smoke phase runs (chip_smoke.py phase 5). ELL remains the
+container default; both are covered by tests.
 
 SparseQP is unbatched by design: the fleet axis is for dense padded
 instances; a single huge sparse QP scales via consensus block-splitting
@@ -139,7 +136,7 @@ class SparseProxQP:
     Sparse analogue of :class:`~..core.problem.ProxQPProblem` — the role of
     the reference's sparse ProxQP constructor + CHOLMOD in-place
     refactorization (`/root/reference/ProxQP.jl:95-115, 201-206`), except the
-    TPU path never factorizes: the inner solve is Jacobi-preconditioned CG on
+    batched path never factorizes: the inner solve is Jacobi-preconditioned CG on
     M = P + sigma*I + rho*(A'A + C'C), so a "refactor" on rho drift is just a
     diagonal refresh. Matrices are stored row-ELL with pre-transposed copies
     (see :class:`SparseQP` for the layout rationale).

@@ -5,10 +5,10 @@ update_bounds -> solve``, re-solving the same structure with drifting data
 without re-paying the setup; the reference's ProxQP constructors embody the
 same split (factor at construction, `/root/reference/ProxQP.jl:73-115`;
 solve reuses it, `:118-173`). This module provides that contract for the
-TPU fleets: :class:`CachedQPSolver` factors the KKT system once at
+fleets: :class:`CachedQPSolver` factors the KKT system once at
 construction and every subsequent :meth:`solve` skips it — on the headline
-workload the factor is 64% of a warm solve (BENCH r4: 182 of 286 ms), so
-static-matrix re-solves (MPC ticks, sweeps over q) run ~3x faster.
+workload the factor is about half of a solve, so static-matrix re-solves
+(MPC ticks, sweeps over q) run about twice as fast.
 
 The heavy lifting lives in :func:`models.admm.prepare` /
 :class:`models.admm.PreparedFactor`; this class just owns the handle, the

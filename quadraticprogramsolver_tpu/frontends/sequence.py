@@ -3,7 +3,7 @@
 The reference's only warm-start facility is the initial ``vX`` argument
 (`SolveQuadraticProgram.jl:14`; ProxQP warm-starts from the equality KKT,
 `ProxQP.jl:80-90`). For receding-horizon control the same QP is re-solved at
-every tick with slowly-drifting data — the canonical TPU-native formulation
+every tick with slowly-drifting data — the canonical batched formulation
 is a `lax.scan` over the time axis carrying (x, z, y) between solves, so an
 entire horizon of warm-started solves (optionally batched over scenarios)
 compiles to a single XLA program.
@@ -129,8 +129,8 @@ def solve_sequence_vectors(qp0: QP, q_seq, l_seq=None, u_seq=None,
         u_seq = jnp.broadcast_to(qp0.u, (T,) + qp0.u.shape)
     # The prepared factor rides the scan CARRY, not the closure: a captured
     # multi-GiB M_inv constant gets a parameter layout XLA then relayouts
-    # inside every while iteration (measured on-chip: the reuse program ran
-    # 4x SLOWER than re-factoring until the cache moved into the carry).
+    # inside every while iteration (the reuse program ran 4x SLOWER than
+    # re-factoring until the cache moved into the carry).
     prepared = admm.prepare(qp0, settings) if reuse_factor else None
 
     def step(carry, tick):

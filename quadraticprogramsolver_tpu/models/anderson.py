@@ -9,16 +9,16 @@ pre-projection point). Anderson acceleration (AA) extrapolates this
 fixed-point sequence from a short history of iterate/residual differences
 (type-II AA, per the A2DR line of work — arXiv:1908.11482 / PAPERS.md — and
 SCS 3.0's accelerated DR). The reference has no analogue (single problem,
-plain iteration); on TPU fleets the win is iteration count: the per-check
+plain iteration); on large fleets the win is iteration count: the per-check
 cost of AA is a handful of matvecs + an M x M solve, amortized over
 ``check_interval`` iterations.
 
-TPU-first shape discipline (everything static, fully batched):
+Shape discipline (everything static, fully batched):
 
 * AA operates at **check boundaries** on the chunk map ``g = T^K`` (K =
   check_interval): the residual ``f_j = g(s_j) - s_j`` is free — ``s_j`` is
   the state entering the chunk and ``g(s_j)`` its output — so the hot chunk
-  (including the fused Pallas kernel) is untouched.
+  is untouched.
 * History is a per-lane ring buffer of the last M difference pairs
   (``anderson_memory``); the mixing weights solve a batched M x M
   Tikhonov-regularized least-squares (``anderson_reg``) — one tiny batched
@@ -35,8 +35,8 @@ TPU-first shape discipline (everything static, fully batched):
 
 Works with every KKT backend (the map is a black box), dense or matrix-free
 sparse problems, Ruiz-scaled solves (the safeguard compares UNSCALED
-residual margins, the same space admm._check_convergence terminates in),
-and the fused Pallas chunk. The history is carried across solve_segmented
+residual margins, the same space admm._check_convergence terminates in).
+The history is carried across solve_segmented
 boundaries (admm._solve_carry_aa), and the consensus block-split solver
 runs its own sharded variant of the same math (parallel/consensus.py:
 split history buffers, psum'd Gram) tested to match this one
@@ -190,8 +190,7 @@ def _residual_margin(qp, settings, Ax, z, Px, ATy, term_scale=None):
     return jnp.maximum(res_prim / eps_p, res_dual / eps_d)
 
 
-def aa_step(qp, settings, state: SolverState, x, z, y, chunk_prods,
-            term_scale=None):
+def aa_step(qp, settings, state: SolverState, x, z, y, term_scale=None):
     """One guarded AA update at a check boundary.
 
     Inputs: the pre-chunk ``state`` (whose x/z/y are the chunk's input
@@ -212,11 +211,7 @@ def aa_step(qp, settings, state: SolverState, x, z, y, chunk_prods,
 
     # Safeguard: residual margins of both candidates (unscaled when Ruiz
     # scaling is active — the same space the termination tests run in).
-    if chunk_prods is None:
-        Ax_p, ATy_p = qp.matvec_A(x), qp.matvec_At(y)
-    else:
-        Ax_p, ATy_p = chunk_prods
-    Px_p = qp.matvec_P(x)
+    Ax_p, ATy_p, Px_p = qp.matvec_A(x), qp.matvec_At(y), qp.matvec_P(x)
     Ax_a, ATy_a, Px_a = qp.matvec_A(x_a), qp.matvec_At(y_a), qp.matvec_P(x_a)
     m_plain = _residual_margin(qp, settings, Ax_p, z, Px_p, ATy_p, term_scale)
     m_aa = _residual_margin(qp, settings, Ax_a, z_a, Px_a, ATy_a, term_scale)

@@ -19,11 +19,13 @@ Schur complement of the (2,2) block — and exactly what its CG backends build
 (LinearSystemSolvers.jl:125-142). ``rho`` is per-instance (*B,), so a fleet
 of QPs adapts penalties independently under one compiled program.
 
-TPU-first choices:
+Design choices:
 * CHOLESKY caches the **explicit inverse** M^{-1}: each iteration's solve is
-  then a single batched matmul on the MXU instead of two sequential
-  triangular solves. Iterative refinement (matvec residual + one more
-  matmul) recovers the accuracy lost to the explicit inverse in f32.
+  then a single batched matvec instead of two sequential triangular
+  solves. Iterative refinement (matvec residual + one more matvec)
+  recovers the accuracy lost to the explicit inverse in f32. With
+  ``sigma_free_rhs`` it caches G = M^{-1}A' and g = M^{-1}q instead, from
+  one Cholesky multi-RHS solve.
 * CG is matrix-free with a Jacobi preconditioner under `lax.while_loop`,
   with per-lane convergence masking — the large-problem path where O(n^2)
   storage of M^{-1} is unaffordable (the regime the reference routes to PCG,
@@ -104,89 +106,32 @@ def _build_normal_matrix(qp: QP, rho_row, sigma):
 
     No explicit symmetrization: P is validated symmetric at construction
     (core/problem.py:validate_qp) and A'WA is symmetric up to f32 rounding
-    (~1e-7 relative), which the symmetric Gauss-Jordan sweep absorbs (it
-    reads one triangle's worth of information — ops/spd_kernels.py). A
-    `sym()` here costs two full passes over the (B, n, n) matrix on TPU
-    (XLA materializes the transposed copy before the add — measured ~10 ms
-    at B=2048, n=512)."""
+    (~1e-7 relative), and jnp.linalg.cholesky symmetrizes its input
+    itself; a `sym()` here would add two more full passes over the
+    (B, n, n) matrix."""
     AtWA = jnp.einsum("...ki,...k,...kj->...ij", qp.A, rho_row, qp.A)
     return add_scaled_identity(qp.P + AtWA, sigma)
-
-
-def _fused_factor_ok(qp: QP, settings: Settings) -> bool:
-    return (
-        settings.fused_factor
-        and settings.sigma_free_rhs
-        and qp.is_dense
-        and qp.dtype == jnp.float32
-        and len(qp.batch_shape) == 1
-        and qp.n % 128 == 0
-        and qp.m % 128 == 0
-    )
 
 
 def cholesky_init(qp: QP, rho, sigma, settings: Settings):
     rho_row = jnp.broadcast_to(rho_rows(qp, rho, settings),
                                qp.batch_shape + (qp.m,))
-    if _fused_factor_ok(qp, settings):
-        # Fused slab factor (ops/fused_factor.py): build + GJ levels as
-        # Pallas kernels, slab updated in place. factor_precision="high"
-        # maps to the kernel's manual 3-pass bf16x3 LEVEL dots (round 4);
-        # the build gram and pivot inverses always run at HIGHEST.
-        from ..ops.fused_factor import fused_factor_solve
+    with jax.named_scope("factor"):
+        return _cholesky_factor(qp, rho_row, sigma, settings)
 
-        # The kernel returns the full slab; slice ONLY G and g from it (a
-        # full-X slice is a 3 GiB copy at B=4096 that blows the 16 GiB HBM
-        # budget — see fused_factor_solve's docstring).
-        S = fused_factor_solve(
-            jnp.broadcast_to(qp.P, qp.batch_shape + (qp.n, qp.n)),
-            jnp.broadcast_to(qp.A, qp.batch_shape + (qp.m, qp.n)),
-            jnp.broadcast_to(qp.q, qp.batch_shape + (qp.n,)),
-            rho_row, sigma=float(settings.sigma_for(qp.dtype)),
-            pivot_variant=settings.pivot_variant,
-            dot_precision=("high" if settings.factor_precision == "high"
-                           else "highest"),
-            interpret=jax.default_backend() != "tpu")
-        if settings.split_cache:
-            # Pre-split bf16 halves (Settings.split_cache): slice G from
-            # the slab here (same transient slab + 2 GiB peak as the
-            # pre-slab_cache G slice — measured to fit at B=4096) and
-            # split it exactly as the kernel's in-kernel _split would, so
-            # the chunk reads half the bytes and skips the split work.
-            G = S[..., :, : qp.m]
-            Ghi = G.astype(jnp.bfloat16)
-            # optimization_barrier is LOAD-BEARING: this backend compiles
-            # with --xla_allow_excess_precision=true, under which XLA may
-            # elide the bf16->f32 round trip and simplify G - f32(bf16(G))
-            # to zero — silently zeroing the lo half (measured on-chip:
-            # 0/4096 lanes converge; the interpret path, where Mosaic owns
-            # the split, is unaffected). The barrier pins the downcast.
-            Ghi = jax.lax.optimization_barrier(Ghi)
-            Glo = (G - Ghi.astype(S.dtype)).astype(jnp.bfloat16)
-            return {"Ghi": Ghi, "Glo": Glo, "g": S[..., :, qp.m]}
-        if settings.slab_cache:
-            # Keep the slab itself: the fused chunk reads G through a block
-            # window — no (B, n, m) G copy (see Settings.slab_cache). g IS
-            # sliced here, once (8.5 MB at B=4096): if the solve loop
-            # instead column-slices the carried slab each check, XLA's
-            # layout assignment puts the carry in {1,2,0} for the slice
-            # while the Pallas chunk constrains its operand to {2,1,0} —
-            # and the relayout copy holds a SECOND 7.4 GiB slab (measured
-            # on-chip OOM: 21.3 G needed of 15.75 at B=4352).
-            return {"S": S, "g": S[..., :, qp.m]}
-        return {"G": S[..., :, : qp.m], "g": S[..., :, qp.m]}
+
+def _cholesky_factor(qp: QP, rho_row, sigma, settings: Settings):
     # The factor path may run at a lower matmul precision than the rest of
     # the solve (Settings.factor_precision): M^{-1} only needs to be a good
     # preconditioner when refinement is on, and the refinement residual is
-    # evaluated against the true M at HIGHEST inside the chunk kernel.
+    # evaluated against the true M at the solve's precision.
     prec = settings.factor_precision or settings.matmul_precision
     with jax.default_matmul_precision(prec):
         M = _build_normal_matrix(qp, rho_row, sigma)
         if settings.sigma_free_rhs:
             # Only M^{-1}[A' q] is ever needed: the sigma-free x-update is
-            # xx = G(rho z - y) - g. Solve for both columns blocks in one
-            # sweep without materializing M^{-1} (see Settings.sigma_free_rhs
-            # and ops/spd_kernels.gj_solve_sweep).
+            # xx = G(rho z - y) - g. Solve for both column blocks in one
+            # Cholesky multi-RHS solve without materializing M^{-1}.
             At = jnp.broadcast_to(jnp.swapaxes(qp.A, -1, -2),
                                   qp.batch_shape + (qp.n, qp.m))
             R = jnp.concatenate([At, qp.q[..., :, None]], axis=-1)
@@ -205,13 +150,7 @@ def cholesky_solve(cache, qp: QP, x, z, y, rho, settings: Settings):
     sigma = jnp.asarray(settings.sigma_for(qp.dtype), qp.dtype)
     rho_row = rho_rows(qp, rho, settings)
     if settings.sigma_free_rhs:
-        if "S" in cache:  # slab_cache: slice G lazily (XLA path only — the
-            G = cache["S"][..., :, : qp.m]       # fused chunk reads the
-        elif "Ghi" in cache:  # split_cache: reconstruct (XLA path only)
-            G = cache["Ghi"].astype(qp.dtype) + cache["Glo"].astype(qp.dtype)
-        else:
-            G = cache["G"]
-        g = cache["g"]
+        G, g = cache["G"], cache["g"]
         t = rho_row * z - y
         xx = jnp.einsum("...k,...nk->...n", t, G) - g
         return xx, qp.matvec_A(xx), cache
@@ -236,8 +175,8 @@ def cholesky_solve(cache, qp: QP, x, z, y, rho, settings: Settings):
 # QDLdl!/LaLdl!/FacLdl!, LinearSystemSolvers.jl:16-107). Batched over lanes;
 # the factorization is a lax.scan over columns (a rare event under the rho
 # hysteresis), the per-iteration solve is two batched triangular solves.
-# The default CHOLESKY backend is faster on TPU; this one exists for parity
-# with the reference's direct KKT path and as the delta-accurate option when
+# The default CHOLESKY backend is the fast path for fleets; this one exists
+# for parity with the reference's direct KKT path and as the delta-accurate option when
 # the normal equations' squared conditioning bites.
 
 
@@ -331,7 +270,7 @@ def kkt_ldl_solve(cache, qp: QP, x, z, y, rho, settings: Settings):
 # explores exactly this alternative: Krylov methods on the indefinite-but-
 # symmetric quasi-definite KKT with a block preconditioner built from
 # P + sigma*I (`/root/reference/LinearSystemSolversFun.jl:191-234`, TriCG /
-# TriMR with opCholesky(P+sigma*I)). TPU re-design: batched MINRES under
+# TriMR with opCholesky(P+sigma*I)). Re-designed as batched MINRES under
 # `lax.while_loop` with per-lane masking, preconditioned by the SPD
 # block-diagonal [ (P+sigma*I)^{-1}, diag(rho_row) ].
 #
@@ -575,11 +514,8 @@ class Backend:
     refactor: Any
     solve: Any
     #: True when refactor is O(n) or free (iterative backends): the solver
-    #: then calls it unconditionally each chunk instead of under `lax.cond`.
-    #: Beyond being pointless for a cheap refactor, the cond is load-bearing
-    #: to AVOID: a cond-wrapped refactor inside the solve loop reproducibly
-    #: crashes the remote TPU worker at n=1e5 (kernel fault; the identical
-    #: program without the cond runs fine — see benchmarks/large_sparse.py).
+    #: then calls it unconditionally each chunk instead of under `lax.cond`,
+    #: which for a cheap refactor would only add a branch to the loop.
     cheap_refactor: bool = False
 
 

@@ -1,25 +1,18 @@
-"""Static execution-plan introspection: which kernel path WILL a solve take?
+"""Static execution-plan introspection: which factor and cache will a solve use?
 
-Round-4 post-mortem motivation: two incidents where a silent fallback
-misled measurement — a headline number attributed to ``split_cache`` that
-actually ran its slab fallback, and chunk unit tests that had silently
-dropped to the XLA path for two rounds (ROADMAP round-4 ledger). Every
-fused-path gate in this package is STATIC (shapes, dtype, settings, batch
-divisibility), so the executed path is fully determined before tracing —
-this module computes it, and ``Settings.require_fused`` turns any fallback
-into a loud error instead of a silent slowdown.
-
-The reference's analogue is its benchmark schema guard
-(`/root/reference/RunBenchmarks.jl:123-137`): artifacts must not be able to
-lie about what produced them.
+Every path choice in the solvers is STATIC (shapes, dtype, settings), so the
+executed path is fully determined before tracing — this module computes it
+without allocating or tracing anything. The reference's analogue is its
+benchmark schema guard (`/root/reference/RunBenchmarks.jl:123-137`):
+artifacts must be able to say what produced them.
 
 Usage::
 
     from quadraticprogramsolver_tpu.models import plan as plan_mod
-    p = plan_mod.plan(qp, settings)          # box-form ADMM family
-    p.chunk        # "fused_pallas" | "xla"
-    p.factor       # "fused_slab" | "xla_gj_sweep" | "xla_inverse" | ...
-    p.fallback_reasons  # () when fully on the requested fast path
+    p = plan_mod.plan(qp, settings)   # box-form ADMM family
+    p.backend   # "cholesky" | "kkt_ldl" | "cg" | "kkt_minres"
+    p.factor    # "cholesky_solve" | "inverse" | "ldl_scan" | ...
+    p.cache     # "G_g" | "M_inv" | "L_d" | "diag" | "P_inv"
 
 ``plan_proxqp(prob, settings)`` is the prox-ALM twin.
 """
@@ -31,182 +24,32 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class SolvePlan:
-    """Static description of the kernel paths one solve will execute.
+    """Static description of the paths one solve will execute."""
 
-    ``fallback_reasons`` lists, for every fast-path feature the settings
-    REQUESTED that will not actually run, a human-readable reason (empty
-    tuple = everything requested is on). ``Settings.require_fused`` raises
-    with exactly these reasons.
-    """
-
-    #: Resolved KKT backend (KKTBackendKind.value, e.g. "cholesky").
+    #: Resolved KKT backend (KKTBackendKind.value, e.g. "cholesky");
+    #: "prox_alm" for the prox family.
     backend: str
-    #: Hot-loop chunk implementation: "fused_pallas" or "xla".
-    chunk: str
-    #: Factor/setup implementation: "fused_slab" (Pallas in-place slab),
-    #: "xla_gj_sweep" (sigma-free blocked Gauss-Jordan), "xla_inverse"
-    #: (explicit M^{-1}), "ldl_scan", "jacobi_diag", "minres_precond",
-    #: or "warm_kkt_lu" (prox dense non-sigma-free is "xla_inverse").
+    #: Factor/setup implementation: "cholesky_solve" (sigma-free Cholesky
+    #: multi-RHS solve for [G g]), "inverse" (explicit M^{-1}), "ldl_scan",
+    #: "jacobi_diag" or "minres_precond".
     factor: str
-    #: KKT cache layout: "slab", "split_bf16", "G_g", "M_inv", "L_d",
-    #: "diag", "P_inv", "Ga_Gc_g".
+    #: KKT cache layout: "G_g", "M_inv", "L_d", "diag", "P_inv", "Ga_Gc_g".
     cache: str
-    #: Effective interleaved lanes in the fused chunk (after the
-    #: B % chunk_lanes divisibility fallback); 1 on the XLA chunk.
-    lanes: int
-    #: (n_pad, m_pad) when the solve internally pads to 128-multiples for
-    #: the fused path ((n, me_pad, mi_pad) for the prox family); None when
-    #: shapes are used as-is.
-    padded: tuple | None
-    #: Iterate-dot precision the chunk will use.
-    dot_precision: str
-    #: Why requested fast paths will NOT run (empty = all on).
-    fallback_reasons: tuple = ()
-
-
-def _dims_fused_chunk_reasons(n, m, dtype, batch_shape, backend_kind,
-                              settings) -> list:
-    """Every failed gate of models/admm._fused_chunk_ok, by name."""
-    import jax.numpy as jnp
-
-    from ..core.settings import KKTBackendKind
-    from .admm import _fused_chunk_shape_ok
-
-    reasons = []
-    if not _fused_chunk_shape_ok(n, m, settings):
-        reasons.append(
-            f"fused chunk VMEM gate: (n={n}, m={m}) x lanes="
-            f"{settings.chunk_lanes} x dot_precision="
-            f"{settings.chunk_dot_precision} exceeds the measured "
-            "scoped-VMEM budget (models/admm._fused_chunk_shape_ok)")
-    if dtype != jnp.float32:
-        reasons.append(f"fused chunk requires float32 (got {dtype})")
-    if len(batch_shape) != 1:
-        reasons.append(
-            f"fused chunk requires exactly one batch axis (got {batch_shape})")
-    if n % 128 or n == 0:
-        reasons.append(f"fused chunk requires n % 128 == 0 and n > 0 (n={n})")
-    if m % 128 or m == 0:
-        reasons.append(f"fused chunk requires m % 128 == 0 and m > 0 (m={m})")
-    if backend_kind is not KKTBackendKind.CHOLESKY:
-        reasons.append(
-            f"fused chunk requires the CHOLESKY backend (resolved "
-            f"{backend_kind.value})")
-    return reasons
-
-
-def _effective_lanes(batch_shape, settings) -> tuple:
-    """(lanes, reason_or_None) after the B % chunk_lanes fallback."""
-    B = batch_shape[0] if batch_shape else 1
-    if settings.chunk_lanes > 1 and B % settings.chunk_lanes != 0:
-        return 1, (f"chunk_lanes={settings.chunk_lanes} does not divide the "
-                   f"fleet size B={B}; the kernel falls back to 1 lane")
-    return settings.chunk_lanes, None
 
 
 def plan(qp, settings) -> SolvePlan:
     """Execution plan for :func:`models.admm.solve` on this (qp, settings).
 
     Purely static — inspects shapes/dtype/settings, allocates nothing,
-    traces nothing. The returned plan is exactly what the solve will run
-    (the gates here ARE the solver's gates, called on the same inputs).
+    traces nothing, and uses the solver's own backend resolution.
     """
-    import jax.numpy as jnp
-
+    from ..core.settings import KKTBackendKind
     from . import kkt as kkt_mod
-    from .admm import _fused_chunk_shape_ok
-
-    reasons = []
-
-    # --- auto-pad decision (models/admm.solve preamble) ---
-    n, m = qp.n, qp.m
-    padded = None
-    pad_eligible = (settings.fused_chunk and qp.is_dense
-                    and qp.dtype == jnp.float32
-                    and len(qp.batch_shape) == 1
-                    and qp.m > 0 and (qp.n % 128 or qp.m % 128))
-    if pad_eligible:
-        n_pad = -(-qp.n // 128) * 128
-        m_pad = -(-qp.m // 128) * 128
-        inflate = (n_pad * m_pad) / (qp.n * qp.m)
-        if inflate <= 4.0 and _fused_chunk_shape_ok(n_pad, m_pad, settings):
-            padded = (n_pad, m_pad)
-            n, m = n_pad, m_pad
-        else:
-            reasons.append(
-                f"auto-pad to ({n_pad}, {m_pad}) rejected: "
-                + (f"work inflation {inflate:.1f}x > 4x"
-                   if inflate > 4.0 else "padded shape fails the VMEM gate")
-                + " — solve runs the XLA chunk at the original shape")
 
     kind = kkt_mod.resolve_backend(settings.kkt_backend, qp)
-
-    # --- chunk path ---
-    chunk = "xla"
-    lanes = 1
-    dot_precision = "highest"
-    if settings.fused_chunk:
-        if not qp.is_dense:
-            reasons.append("fused chunk requires a dense QP")
-            chunk_reasons = []
-        else:
-            chunk_reasons = _dims_fused_chunk_reasons(
-                n, m, qp.dtype, qp.batch_shape, kind, settings)
-        if qp.is_dense and not chunk_reasons:
-            chunk = "fused_pallas"
-            lanes, lane_reason = _effective_lanes(qp.batch_shape, settings)
-            if lane_reason:
-                reasons.append(lane_reason)
-            dot_precision = (settings.chunk_dot_precision
-                            if settings.sigma_free_rhs else "highest")
-        else:
-            reasons.extend(chunk_reasons)
-
-    # --- factor path + cache layout ---
-    from ..core.settings import KKTBackendKind
-
     if kind is KKTBackendKind.CHOLESKY:
-        fused_factor_ok = (
-            settings.fused_factor and settings.sigma_free_rhs
-            and qp.is_dense and qp.dtype == jnp.float32
-            and len(qp.batch_shape) == 1 and n % 128 == 0 and m % 128 == 0)
-        if settings.fused_factor and not fused_factor_ok:
-            why = []
-            if not settings.sigma_free_rhs:
-                why.append("sigma_free_rhs is off")
-            if qp.dtype != jnp.float32:
-                why.append(f"dtype {qp.dtype} != float32")
-            if len(qp.batch_shape) != 1:
-                why.append(f"batch axes {qp.batch_shape}")
-            if n % 128 or m % 128:
-                why.append(f"(n={n}, m={m}) not 128-multiples")
-            if not qp.is_dense:
-                why.append("sparse QP")
-            reasons.append("fused_factor falls back to the XLA build ("
-                           + "; ".join(why) + ")")
-        if fused_factor_ok:
-            factor = "fused_slab"
-        elif settings.sigma_free_rhs:
-            factor = "xla_gj_sweep"
-        else:
-            factor = "xla_inverse"
-        if settings.split_cache and fused_factor_ok:
-            cache = "split_bf16"
-        elif settings.slab_cache and fused_factor_ok:
-            cache = "slab"
-        elif settings.split_cache or settings.slab_cache:
-            # Settings validation requires fused_factor for these flags, so
-            # reaching here means the RUNTIME gate (shape/dtype) failed and
-            # cholesky_init returns the plain {G, g} layout.
-            cache = "G_g"
-            reasons.append(
-                ("split_cache" if settings.split_cache else "slab_cache")
-                + " falls back to the plain {G, g} cache (fused factor "
-                "gates failed — see above)")
-        elif settings.sigma_free_rhs:
-            cache = "G_g"
-        else:
-            cache = "M_inv"
+        factor, cache = (("cholesky_solve", "G_g") if settings.sigma_free_rhs
+                         else ("inverse", "M_inv"))
     elif kind is KKTBackendKind.KKT_LDL:
         factor, cache = "ldl_scan", "L_d"
     elif kind is KKTBackendKind.KKT_MINRES:
@@ -214,83 +57,15 @@ def plan(qp, settings) -> SolvePlan:
         cache = "P_inv" if qp.is_dense else "diag"
     else:  # CG
         factor, cache = "jacobi_diag", "diag"
-
-    return SolvePlan(
-        backend=kind.value, chunk=chunk, factor=factor, cache=cache,
-        lanes=lanes, padded=padded, dot_precision=dot_precision,
-        fallback_reasons=tuple(reasons))
+    return SolvePlan(backend=kind.value, factor=factor, cache=cache)
 
 
 def plan_proxqp(prob, settings) -> SolvePlan:
     """Execution plan for :func:`models.proxqp.solve` (prox-ALM family)."""
-    import jax.numpy as jnp
-
-    reasons = []
-    n, me, mi = prob.n, prob.n_eq, prob.n_ineq
-    padded = None
-
-    pad_eligible = (settings.fused_chunk and prob.is_dense
-                    and prob.dtype == jnp.float32
-                    and len(prob.batch_shape) == 1)
-    if pad_eligible:
-        r128 = lambda v: max(-(-v // 128) * 128, 128)
-        tgt = (r128(n), r128(me), r128(mi))
-        if tgt != (n, me, mi):
-            padded = tgt
-            n, me, mi = tgt
-
-    fused_ok = (settings.fused_chunk and prob.is_dense
-                and prob.dtype == jnp.float32
-                and len(prob.batch_shape) == 1
-                and n % 128 == 0
-                and me % 128 == 0 and me > 0
-                and mi % 128 == 0 and mi > 0)
-    chunk = "fused_pallas" if fused_ok else "xla"
-    lanes = 1
-    dot_precision = "highest"
-    if settings.fused_chunk and not fused_ok:
-        if not prob.is_dense:
-            reasons.append("fused prox chunk requires a dense ProxQPProblem")
-        if prob.dtype != jnp.float32:
-            reasons.append(f"fused prox chunk requires float32 (got {prob.dtype})")
-        if len(prob.batch_shape) != 1:
-            reasons.append(f"fused prox chunk requires exactly one batch axis "
-                           f"(got {prob.batch_shape})")
-        if prob.is_dense and (n % 128 or me % 128 or mi % 128
-                              or me == 0 or mi == 0):
-            reasons.append(f"fused prox chunk requires nonzero 128-multiple "
-                           f"dims (n={n}, n_eq={me}, n_ineq={mi})")
-    if fused_ok:
-        lanes, lane_reason = _effective_lanes(prob.batch_shape, settings)
-        if lane_reason:
-            reasons.append(lane_reason)
-        dot_precision = (settings.chunk_dot_precision
-                        if settings.sigma_free_rhs else "highest")
-
-    # Factor path (models/proxqp._build_sigma_free_cache / _build_M_inv).
     if settings.sigma_free_rhs:
-        factor_fused = (prob.is_dense and prob.dtype == jnp.float32
-                        and len(prob.batch_shape) == 1
-                        and n % 128 == 0 and me % 128 == 0 and mi % 128 == 0
-                        and me > 0 and mi > 0)
-        factor = "fused_slab" if factor_fused else "xla_gj_sweep"
-        cache = "Ga_Gc_g"
+        factor, cache = "cholesky_solve", "Ga_Gc_g"
     elif prob.is_dense:
-        factor, cache = "xla_inverse", "M_inv"
+        factor, cache = "inverse", "M_inv"
     else:
         factor, cache = "jacobi_diag", "diag"
-
-    return SolvePlan(
-        backend="prox_alm", chunk=chunk, factor=factor, cache=cache,
-        lanes=lanes, padded=padded, dot_precision=dot_precision,
-        fallback_reasons=tuple(reasons))
-
-
-def check_require_fused(p: SolvePlan, family: str) -> None:
-    """Raise when a require_fused solve would fall off a requested path."""
-    if p.fallback_reasons:
-        raise ValueError(
-            f"require_fused: the {family} solve would silently fall back:\n- "
-            + "\n- ".join(p.fallback_reasons)
-            + f"\n(plan: chunk={p.chunk}, factor={p.factor}, cache={p.cache},"
-            f" lanes={p.lanes}, padded={p.padded})")
+    return SolvePlan(backend="prox_alm", factor=factor, cache=cache)

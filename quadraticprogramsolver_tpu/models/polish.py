@@ -18,7 +18,7 @@ and pins nu = 0 elsewhere. Infinite bounds are never active (SURVEY.md §7).
 Two solve paths behind one dispatch:
 
 * **Dense, m <= n** — Schur complement on the SPD block: two batched
-  Cholesky-style solves on the MXU, then iterative refinement against the
+  Cholesky-style solves, then iterative refinement against the
   full KKT operator `polish_iterations` times (the analogue of the
   reference's numPolishItr MINRES sweeps, m:314-320).
 * **Everything else** (dense m >> n, where the m x m Schur complement would

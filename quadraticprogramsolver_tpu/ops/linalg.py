@@ -1,7 +1,8 @@
 """Small batched linear-algebra primitives shared by solvers and backends.
 
-Everything here operates on arrays with arbitrary leading batch axes and maps
-onto the MXU (batched matmuls) or VPU (elementwise/reductions) under XLA.
+Everything here operates on arrays with arbitrary leading batch axes and
+lowers to batched matmuls, factorizations and fused elementwise/reduction
+kernels under XLA.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ def spsd_sqrt(A: jax.Array, rank_tol: float = 1e-10) -> jax.Array:
 
     Role of the reference's `CalcSPSDSquareRoot` (SPSDMatSquareRoot.jl:63-118),
     which does pivoted-QR rank detection + reduced Cholesky (dense) or shifted
-    Cholesky (sparse). The TPU idiom is a batched eigendecomposition: with
+    Cholesky (sparse). The batched idiom is an eigendecomposition: with
     A = V diag(w) V', M = diag(sqrt(w_clipped)) V' satisfies M'M = A, and
     eigenvalues below rank_tol * max(w) are clipped to zero — the same
     numerical-rank cutoff as the reference's R-diagonal test (:100-101).
@@ -66,60 +67,21 @@ def spsd_sqrt(A: jax.Array, rank_tol: float = 1e-10) -> jax.Array:
 
 
 def spd_inverse(M: jax.Array) -> jax.Array:
-    """Batched SPD inverse.
+    """Batched SPD inverse (:func:`spd_inverse_blocked`).
 
-    On TPU the explicit inverse turns every downstream solve into one batched
-    matmul (full MXU rate, no sequential triangular dependency) — the TPU
-    analogue of the reference caching a CHOLMOD/QDLDL factorization and
-    calling ldiv! per iteration (LinearSystemSolvers.jl:30-44). Combined with
-    iterative refinement this recovers direct-solve accuracy.
-
-    Dispatch (static, at trace time):
-    * TPU + f32 + n a multiple of 128 + flat batch >= 4: the flat blocked
-      Gauss-Jordan sweep with the multi-lane Pallas pivot kernel
-      (:func:`~..ops.spd_kernels.spd_inverse_sweep_fused`) — measured 151 ms
-      vs 235 ms for the recursion at (2048, 512, 512) f32.
-    * otherwise: recursive 2x2-block Schur-complement inversion
-      (:func:`spd_inverse_blocked`). XLA's batched Cholesky on TPU runs a
-      sequential panel loop at ~1% MXU utilization (measured 122 ms for
-      512x512x512 f32), while the Schur recursion is entirely batched
-      matmuls (~10x faster). Unpivoted block elimination is numerically fine
-      for SPD.
+    The explicit inverse turns every downstream solve into one batched
+    matvec with no sequential triangular dependency — the analogue of the
+    reference caching a CHOLMOD/QDLDL factorization and calling ldiv! per
+    iteration (LinearSystemSolvers.jl:30-44). Combined with iterative
+    refinement this recovers direct-solve accuracy.
     """
-    import math
-
-    batch = int(math.prod(M.shape[:-2]))
-    if (jax.default_backend() == "tpu" and M.dtype == jnp.float32
-            and M.shape[-1] % 128 == 0 and batch >= 4):
-        from .spd_kernels import spd_inverse_sweep_fused
-
-        return spd_inverse_sweep_fused(M)
     return spd_inverse_blocked(M)
 
 
 def spd_solve(M: jax.Array, R: jax.Array) -> jax.Array:
     """Batched SPD multi-RHS solve M X = R ((*B, n, n) x (*B, n, k)) without
-    materializing M^{-1}.
-
-    Dispatch mirrors :func:`spd_inverse`: on TPU/f32/128-multiples the
-    blocked Gauss-Jordan sweep (Pallas pivot kernel, RHS-only updates —
-    ~n^2(n/2 + k) macs vs n^3 + n^2 k for inverse-then-multiply); elsewhere
-    a Cholesky solve. RHS columns are zero-padded to the sweep's 128-lane
-    tile internally and sliced back.
-    """
-    import math
-
-    batch = int(math.prod(M.shape[:-2]))
-    k = R.shape[-1]
-    if (jax.default_backend() == "tpu" and M.dtype == jnp.float32
-            and M.shape[-1] % 128 == 0 and batch >= 4):
-        from .spd_kernels import gj_solve_sweep
-
-        k_pad = -(-k // 128) * 128
-        if k_pad != k:
-            pad = [(0, 0)] * (R.ndim - 1) + [(0, k_pad - k)]
-            R = jnp.pad(R, pad)
-        return gj_solve_sweep(M, R)[..., :k]
+    materializing M^{-1}: Cholesky factor, then two triangular solves
+    (cuSOLVER and cuBLAS on the GPU)."""
     L = jnp.linalg.cholesky(M)
     return jax.scipy.linalg.cho_solve((L, True), R)
 
@@ -142,10 +104,10 @@ def spd_inverse_blocked(M: jax.Array, split: bool = False) -> jax.Array:
         M^{-1} = [[A^{-1} + W' S^{-1} W,  -W' S^{-1}],
                   [-S^{-1} W,              S^{-1}]],   W = B A^{-1}.
 
-    Two half-size recursive inversions + four batched matmuls per level, so
-    the whole computation maps onto the MXU. Only the final result is
-    symmetrized — intermediate blocks are symmetric up to roundoff by
-    construction, and each extra sym() is a full HBM pass over B*n^2.
+    Two half-size recursive inversions + four batched matmuls per level.
+    Only the final result is symmetrized — intermediate blocks are
+    symmetric up to roundoff by construction, and each extra sym() is a
+    full memory pass over B*n^2.
     """
     return sym(_spd_inverse_blocked_raw(M))
 

@@ -2,11 +2,11 @@
 with fleet sharding (data-parallel axis) on a 2-D mesh.
 
 The reference is single-process; SURVEY.md §2 designates constraint-block
-splitting with collective reductions as the TPU framework's model-parallel
+splitting with collective reductions as the framework's model-parallel
 axis, and BASELINE.md config 5 is the combined case: an MPC/scenario fleet
 sharded over one mesh axis with each problem's constraint rows split over
 the other. This module runs the *exact* OSQP iteration of models/admm.py
-under `shard_map` with explicit ICI collectives:
+under `shard_map` with explicit collectives:
 
   * KKT normal matrix:  M = P + sigma*I + rho * psum_blocks(A_d' A_d)
   * KKT right-hand side: sigma*x - q + psum_blocks(A_d'(rho*z_d - y_d))
@@ -545,7 +545,7 @@ def _solve_impl(qp: QP, settings: Settings, mesh: Mesh,
     l = jax.device_put(qp.l, sharding(P(fa, block_axis)))
     u = jax.device_put(qp.u, sharding(P(fa, block_axis)))
 
-    # Full-f32 matmul accumulation on TPU (see models/admm.py rationale);
+    # Full-FP32 matmuls, no TF32 (see the models/admm.py rationale);
     # the context is trace-time, so wrapping the first (tracing) call suffices.
     with jax.default_matmul_precision("highest"):
         out = run(Pm, q, A, l, u)

@@ -1,11 +1,13 @@
 """Device-mesh utilities and fleet-sharded solving.
 
 The reference is single-process (SURVEY.md §2: no distributed components).
-On TPU the first-class scaling axis is **data parallelism over QP
+On an accelerator the first-class scaling axis is **data parallelism over QP
 instances**: a fleet of independent QPs is sharded over the mesh's ``qp``
 axis with `NamedSharding`, and the one jitted solve runs SPMD — XLA inserts
 the only collective needed (the all-reduce behind ``jnp.any(status ==
-RUNNING)`` in the while-loop predicate) over ICI.
+RUNNING)`` in the while-loop predicate), which NCCL runs over NVLink
+between the cards of one host. The mesh is 1-D: every card reaches every
+other at the same rate, so nothing is shaped for a torus.
 
 Consensus-ADMM block splitting of a single large QP (the model-parallel
 analogue) lives in parallel/consensus.py.
@@ -30,13 +32,13 @@ BATCH_AXIS = "qp"
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> None:
-    """Multi-host initialization (one JAX process per host of a pod slice).
+    """Multi-host initialization (one JAX process per host).
 
-    Thin wrapper over `jax.distributed.initialize`; with no arguments the
-    cluster environment (TPU metadata) is auto-detected. After this,
-    `jax.devices()` spans the whole slice and the fleet/consensus solvers
-    shard across hosts with the same code — collectives ride ICI within a
-    slice and DCN across hosts, per the SURVEY §5 distributed-backend plan.
+    Thin wrapper over `jax.distributed.initialize`. Pass the coordinator's
+    ``host:port``, the number of processes and this process's id: a plain
+    GPU cluster announces none of them. After this, `jax.devices()` spans
+    every host's cards and the fleet/consensus solvers shard across hosts
+    with the same code, per the SURVEY §5 distributed-backend plan.
     No-ops when already initialized (safe to call from every entry point).
     """
     import jax
@@ -102,7 +104,7 @@ def solve_prox_fleet(prob, settings: ProxQPSettings,
     """Fleet data-parallelism for the prox-ALM family.
 
     The second solver family (`/root/reference/ProxQP.jl:118-173`) gets the
-    same dominant TPU scaling axis as the box form: a fleet of independent
+    same dominant scaling axis as the box form: a fleet of independent
     split-form QPs sharded over the mesh's ``qp`` axis, one jitted SPMD
     program, per-device factor + iterate over the local shard. Every state
     leaf of the prox solver (x/y/s/z, the {Ga, Gc, g} or M^{-1} factor

@@ -25,7 +25,7 @@ rebuild under `lax.cond`.
 Not supported here: the equality-KKT warm start (it would need the full A
 gathered on every shard — start is zeros, the `kkt_warm_start=False`
 semantics; compare against the single-device solve with the same flag),
-Anderson acceleration, and the fused Pallas chunk (single-device layouts).
+and Anderson acceleration.
 """
 
 from __future__ import annotations

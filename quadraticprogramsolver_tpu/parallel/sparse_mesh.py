@@ -23,8 +23,8 @@ flows through deterministic psum/all_gather), so the distributed iterates
 are bitwise-reproducible and match the single-device SparseQP solve.
 Residual checks pmax/psum their row-space pieces exactly like consensus.py;
 adaptive rho, Ruiz-scaled termination (host pre-scaling), and the OSQP §3.4
-infeasibility certificates all run distributed. Round 4 closes the last
-feature gaps vs the single-device solver (VERDICT r3 missing #2):
+infeasibility certificates all run distributed, with no feature gaps vs
+the single-device solver:
 
   * **Vector-rho** (Settings.rho_eq_scale): weights derive from each row's
     own l/u, so every shard computes its slice locally; the weighted Jacobi
@@ -697,8 +697,7 @@ def solve_sparse_mesh_segmented(sq: ShardedSparseQP,
     """Bounded device programs over the mesh with a warm-start carry —
     the distributed sibling of models/admm.py:solve_segmented.
 
-    Why it exists: a monolithic mesh program that RUNS for minutes risks
-    the remote worker's runtime fault the round-2 n=1e5 solves hit, and a
+    Why it exists: a backend may limit how long one program runs, and a
     segment boundary is a natural checkpoint (the carry is a host-visible
     pytree — save it with utils/checkpoint-style np round-trips). Anderson
     history, adaptive-rho state, and the certificate product caches all

@@ -11,9 +11,11 @@ branch the reference sets masked *upper* bounds via ``vU[vI] .= vI[vI]``
 (GenerateQuadraticProgram.jl:35), i.e. to 1.0 (a BitVector indexed by itself),
 almost certainly intending ``vL[vI]``. We reproduce the 1.0 behavior.
 
-This module is host-side (numpy + scipy.sparse): problem generation is test
-fixture/benchmark machinery, not TPU compute. Use :func:`generate_batch` to
-stack instances into a device-ready batched :class:`~...core.problem.QP`.
+The 9 families are generated host-side (numpy + scipy.sparse): problem
+generation is test fixture/benchmark machinery, not solver compute. Use
+:func:`generate_batch` to stack instances into a device-ready batched
+:class:`~...core.problem.QP`, or :func:`device_random_qp_fleet` to draw a
+large random-QP fleet directly on the device.
 """
 
 from __future__ import annotations
@@ -287,7 +289,7 @@ def generate_batch(
     """Generate ``batch`` same-shape instances and stack them into a batched QP.
 
     Returns a device :class:`QP` of shape (batch, ...). This is the fleet axis
-    the TPU solver shards/batches over — the reference has no analogue (it
+    the solver shards/batches over — the reference has no analogue (it
     solves one instance per call).
     """
     from ..core.problem import make_qp
@@ -303,3 +305,87 @@ def generate_batch(
     dense = [d.dense(dtype) for d in datas]
     P, q, A, l, u = (np.stack([inst[i] for inst in dense]) for i in range(5))
     return make_qp(P, q, A, l, u, dtype=dtype)
+
+
+def device_random_qp_fleet(batch: int, n: int, m: int, seed: int):
+    """On-device batched random_qp family (GenerateQuadraticProgram.jl:10-36).
+
+    P = M'M + 1e-2 I with M ~ sparse(0.15) normal, q ~ N(0,1), A ~
+    sparse(0.15) normal, l = -U(0,1), u = U(0,1), then 15% of rows get l=u
+    (equality) and 15% get u=1.0 (the reference's vI[vI] quirk, see the
+    module docstring). Same distribution as :func:`generate_random_qp`'s
+    RANDOM_QP class with m rows, drawn with ``jax.random`` in float32 on the
+    default device: host generation and transfer of thousands of dense
+    n x n instances would dominate a benchmark's set-up time.
+    """
+    import jax
+    import jax.numpy as jnp
+
+    from ..core.problem import QP
+
+    density, alpha = 0.15, 1e-2
+
+    def masked_normal(k, r, c):
+        mask = jax.random.uniform(jax.random.fold_in(k, 1),
+                                  (batch, r, c)) < density
+        return jax.random.normal(k, (batch, r, c), jnp.float32) * mask
+
+    @jax.jit
+    def make_P(k):
+        Mm = masked_normal(k, n, n)
+        return (jnp.einsum("bki,bkj->bij", Mm, Mm, precision="highest")
+                + alpha * jnp.eye(n, dtype=jnp.float32))
+
+    @jax.jit
+    def make_rest(k):
+        A = masked_normal(jax.random.fold_in(k, 2), m, n)
+        k = jax.random.fold_in(k, 3)
+        q = jax.random.normal(k, (batch, n), jnp.float32)
+        # Explicit f32: under enable_x64 uniform() defaults to f64.
+        l = -jax.random.uniform(jax.random.fold_in(k, 1), (batch, m),
+                                jnp.float32)
+        u = jax.random.uniform(jax.random.fold_in(k, 2), (batch, m),
+                               jnp.float32)
+        eq = jax.random.uniform(jax.random.fold_in(k, 3), (batch, m)) <= 0.15
+        u1 = jax.random.uniform(jax.random.fold_in(k, 4), (batch, m)) <= 0.15
+        l = jnp.where(eq, u, l)
+        u = jnp.where(u1, 1.0, u)
+        return q, A, l, u
+
+    key = jax.random.PRNGKey(seed)
+    P = make_P(key)
+    q, A, l, u = make_rest(key)
+    return QP(P=P, q=q, A=A, l=l, u=u)
+
+
+def device_split_qp_fleet(batch: int, n: int, me: int, mi: int, seed: int):
+    """On-device fleet of random split-form QPs (the prox-ALM family's shape,
+    after the reference's ProxQP001.jl demo, :65-100): P = M'M/n + I with
+    M ~ N(0,1), q ~ N(0,1), A (me x n) and C (mi x n) ~ N(0,1), and
+    b = A x_f, d = C x_f + 1 for a random x_f, so every instance is
+    feasible with a strictly interior inequality slack. float32, drawn on
+    the default device.
+    """
+    import jax
+    import jax.numpy as jnp
+
+    from ..core.problem import ProxQPProblem
+
+    @jax.jit
+    def make(key):
+        M = jax.random.normal(key, (batch, n, n), jnp.float32)
+        P = (jnp.einsum("bki,bkj->bij", M, M, precision="highest") / n
+             + jnp.eye(n, dtype=jnp.float32))
+        A = jax.random.normal(jax.random.fold_in(key, 1), (batch, me, n),
+                              jnp.float32)
+        C = jax.random.normal(jax.random.fold_in(key, 2), (batch, mi, n),
+                              jnp.float32)
+        k = jax.random.fold_in(key, 3)
+        xf = jax.random.normal(k, (batch, n), jnp.float32)
+        q = jax.random.normal(jax.random.fold_in(k, 1), (batch, n),
+                              jnp.float32)
+        b = jnp.einsum("bij,bj->bi", A, xf, precision="highest")
+        d = jnp.einsum("bij,bj->bi", C, xf, precision="highest") + 1.0
+        return ProxQPProblem(P=P, q=q, A=A, b=b, C=C, d=d)
+
+    return make(jax.random.PRNGKey(seed))

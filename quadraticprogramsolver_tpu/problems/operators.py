@@ -7,7 +7,7 @@ operators (shape-constrained regression) — the building blocks of the
 monotone-spline smoothing application (ProxQP002.jl:131-212).
 
 Host-side numpy builders (these are problem-construction utilities; the
-solve runs on TPU with the resulting dense/batched operators).
+solve runs on the device with the resulting dense/batched operators).
 """
 
 from __future__ import annotations
@@ -141,7 +141,7 @@ def monotone_smoothing_sparse_qp(y: np.ndarray, ref_idx,
                                  smooth_order: int = 2, lam: float = 1.0):
     """Sparse version of :func:`monotone_smoothing_qp`: returns scipy-sparse
     (P, q, C, d) suitable for `make_sparse_proxqp` — the matrix-free ProxQP
-    path for n >= 5e4 signals (ProxQP002.jl's application at TPU scale)."""
+    path for n >= 5e4 signals (ProxQP002.jl's application at scale)."""
     import scipy.sparse as sp
 
     y = np.asarray(y, float)

@@ -31,9 +31,14 @@ def _load() -> ctypes.CDLL:
              and os.path.getmtime(_LIB) < os.path.getmtime(_SRC))
     if not os.path.exists(_LIB) or stale:
         os.makedirs(os.path.dirname(_LIB), exist_ok=True)
+        # Build beside the target and rename into place: processes that
+        # build at the same time (parallel test workers) then never load a
+        # half-written library.
+        part = f"{_LIB}.{os.getpid()}.part"
         subprocess.run(
-            ["g++", "-O3", "-fPIC", "-std=c++17", "-shared", "-o", _LIB, _SRC],
+            ["g++", "-O3", "-fPIC", "-std=c++17", "-shared", "-o", part, _SRC],
             check=True, capture_output=True)
+        os.replace(part, _LIB)
     lib = ctypes.CDLL(_LIB)
     i32p = ctypes.POINTER(ctypes.c_int32)
     f64p = ctypes.POINTER(ctypes.c_double)

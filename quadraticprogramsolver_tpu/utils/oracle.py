@@ -7,7 +7,7 @@ oracle discipline becomes:
 
 1. :func:`solve_qp_reference` — an independent, scalar, float64 NumPy/SciPy
    implementation of the same OSQP iteration (sparse LU of the quasi-definite
-   KKT matrix — a *different* linear-algebra path than the TPU solver's
+   KKT matrix — a *different* linear-algebra path than the device solver's
    batched normal-equations Cholesky), run at tight tolerance. Math follows
    `SolveQuadraticProgram.jl:45-112`.
 2. :func:`kkt_optimality` — direct verification of the KKT conditions of a
@@ -15,7 +15,7 @@ oracle discipline becomes:
    complementary slackness. A solution passing this at tolerance eps is
    optimal regardless of which solver produced it.
 
-Both run on host in float64 and never enter the TPU compute path.
+Both run on host in float64 and never enter the device compute path.
 """
 
 from __future__ import annotations

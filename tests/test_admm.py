@@ -6,7 +6,7 @@ sweep the problem families with seeded instances, solve at eps=1e-7, accept
 the independent host-side f64 sparse-LU ADMM plus direct KKT-condition checks
 (see quadraticprogramsolver_tpu/utils/oracle.py).
 
-All problems are zero-padded to one shared (n=128, m=128) shape — the TPU
+All problems are zero-padded to one shared (n=128, m=128) shape — the
 framework's static-shape fleet mechanism — so the whole sweep shares a single
 compiled executable (and the padding path itself is exercised everywhere).
 Seeds are pinned to feasible instances: the reference generator's sparse A
@@ -142,7 +142,7 @@ def test_cg_backend_parity():
 
 
 def test_float32_accuracy():
-    # BASELINE.md target: 1e-4 accuracy in the TPU-native f32 regime.
+    # BASELINE.md target: 1e-4 accuracy in the f32 regime of the device.
     data = qps.generate_random_qp(ProblemClass.RANDOM_QP, 50, seed=5)
     ref = solve_qp_reference(data.P, data.q, data.A, data.l, data.u,
                              eps_abs=1e-9, eps_rel=1e-9, rho=0.1)
@@ -255,7 +255,7 @@ def test_f32_sigma_floor_on_degenerate_qp():
 
 def test_segmented_host_rho_adaptation():
     # Device programs run rho-static; the host applies the candidate +
-    # hysteresis rule between segments (the n=1e5 remote-TPU workaround).
+    # hysteresis rule between segments (solve_segmented's host_rho_adaptation).
     # Must converge to the same solution as the in-program adaptive solve.
     from quadraticprogramsolver_tpu.models.admm import solve_segmented
 
@@ -277,7 +277,7 @@ def test_segmented_host_rho_adaptation():
 
 
 def test_bitwise_reproducibility():
-    # SURVEY.md §5: in place of race detection (nothing races on TPU), assert
+    # SURVEY.md §5: in place of race detection (nothing races here), assert
     # cross-run determinism — two identical solves must agree bitwise.
     data = qps.generate_random_qp(ProblemClass.RANDOM_QP, 24, seed=4)
     qp = qps.make_qp(*data.dense(), dtype=np.float64)

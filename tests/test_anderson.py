@@ -183,27 +183,12 @@ def test_aa_safeguard_unscaled_margins():
     assert dev <= ABS_DEV_THR, dev
 
 
-def test_aa_composes_with_fused_chunk():
-    """AA operates at check boundaries outside the fused Pallas kernel, so
-    the two compose (interpret mode on CPU); parity vs the XLA chunk path."""
-    fleet = qps.generate_batch(ProblemClass.RANDOM_QP, 4, 128, seed=0,
-                               dtype=np.float32)
-    st = qps.Settings(eps_abs=1e-4, eps_rel=1e-4, rho=0.1,
-                      max_iterations=1000, anderson_memory=4,
-                      kkt_refinement_steps=0)
-    plain = qps.solve_jit(fleet, st)
-    fused = qps.solve_jit(fleet, dataclasses.replace(st, fused_chunk=True))
-    assert (np.asarray(fused.info.status) >= 2).all()
-    dev = np.abs(np.asarray(fused.x) - np.asarray(plain.x)).max()
-    assert dev <= 1e-3, dev
-
-
 def test_lasso_seed0_aa_more_iterations_but_correct():
-    """Regression pin for PARITY.md's honesty note (VERDICT r3 weak #3).
+    """Regression pin for PARITY.md's honesty note.
 
     On lasso/num_elements=10/seed 0 (n=50), guarded AA takes MORE
     iterations than plain (measured 150 -> 200 at eps 1e-7, ci=25,
-    benchmarks/results/iteration_parity.csv): the residual-margin safeguard
+    benchmarks/iteration_parity.py): the residual-margin safeguard
     bounds per-check degradation relative to the AA trajectory's own plain
     chunk, not iterations-to-exit (that would need the counterfactual plain
     trajectory). Both solves must still land on the oracle. If AA stops

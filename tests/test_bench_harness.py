@@ -61,8 +61,8 @@ def test_small_sweep(tmp_path):
 
 
 def test_headline_record_schema_guard(tmp_path):
-    """append_headline_record keeps headline configs in committed artifacts
-    (VERDICT r3 weak #6) and refuses appends whose key set drifts — the
+    """append_headline_record keeps headline configs in artifacts and
+    refuses appends whose key set drifts — the
     JSONL analogue of the CSV header guard (RunBenchmarks.jl:123-137)."""
     import json
 

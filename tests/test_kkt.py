@@ -185,3 +185,39 @@ def test_minres_backend_sparse_full_solve():
     sol = qps.solve_jit(sqp, st)
     assert int(sol.info.status) >= qps.Status.SOLVED_ADMM
     assert np.abs(np.asarray(sol.x) - ref.x).max() <= 1e-5
+
+
+@pytest.mark.parametrize("rho_eq_scale", [1.0, 10.0])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("sigma_free", [False, True],
+                         ids=["M_inv", "sigma_free"])
+def test_cholesky_init_cache_contents(sigma_free, dtype, rho_eq_scale):
+    """cholesky_init caches exactly {G = M^-1 A', g = M^-1 q} (sigma-free)
+    or {M_inv} (otherwise), with M = P + sigma I + A' diag(rho w) A and the
+    per-row weights w of rho_eq_scale, per lane."""
+    data, qp = _random_qp(n=24, seed=3, batch=3, dtype=dtype)
+    st = qps.Settings(sigma_free_rhs=sigma_free,
+                      kkt_refinement_steps=0 if sigma_free else 1,
+                      rho_eq_scale=rho_eq_scale)
+    rho = np.array([0.1, 1.0, 10.0])
+    sigma = st.sigma_for(dtype)
+    cache = kkt.cholesky_init(qp, jnp.asarray(rho, dtype),
+                              jnp.asarray(sigma, dtype), st)
+    assert set(cache) == ({"G", "g"} if sigma_free else {"M_inv"})
+    P, q, A = data.P.toarray(), data.q, data.A.toarray()
+    l, u = data.l, data.u
+    eq = (np.isfinite(l) & np.isfinite(u)
+          & (np.abs(u - l) <= 1e-9 * np.maximum(1.0, np.abs(u))))
+    w = np.where(eq, rho_eq_scale, 1.0)
+    tol = 1e-3 if dtype == np.float32 else 1e-9
+    for i, r in enumerate(rho):
+        M_inv = np.linalg.inv(P + sigma * np.eye(data.n) + A.T @ (r * w[:, None] * A))
+        if sigma_free:
+            want = {"G": M_inv @ A.T, "g": M_inv @ q}
+        else:
+            want = {"M_inv": M_inv}
+        for key, ref in want.items():
+            got = np.asarray(cache[key][i], np.float64)
+            assert got.shape == ref.shape, key
+            rel = np.abs(got - ref).max() / np.abs(ref).max()
+            assert rel <= tol, (key, i, rel)

@@ -66,36 +66,6 @@ def test_spd_inverse_blocked_accuracy():
     assert resid < 1e-2, resid
 
 
-def test_gj_solve_sweep_matches_solve():
-    """Blocked Gauss-Jordan multi-RHS solve (no M^{-1}) vs numpy."""
-    from quadraticprogramsolver_tpu.ops.spd_kernels import gj_solve_sweep
-
-    M = _spd((5,), 256, seed=3)
-    rng = np.random.default_rng(4)
-    R = rng.standard_normal((5, 256, 129))
-    X = np.asarray(gj_solve_sweep(M, R, pivot_inverse=linalg.spd_inverse))
-    ref = np.linalg.solve(M, R)
-    scale = np.abs(ref).max()
-    assert np.abs(X - ref).max() / scale <= 1e-9
-
-
-def test_gj_solve_sweep_f32_ill_conditioned():
-    """f32 accuracy on a normal-matrix-like conditioning (~1e4)."""
-    from quadraticprogramsolver_tpu.ops.spd_kernels import gj_solve_sweep
-
-    rng = np.random.default_rng(5)
-    n = 128
-    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
-    w = np.logspace(-4, 0, n)
-    M = ((Q * w) @ Q.T).astype(np.float32)[None].repeat(4, 0)
-    R = rng.standard_normal((4, n, 32)).astype(np.float32)
-    X = np.asarray(gj_solve_sweep(M, R, pivot_inverse=linalg.spd_inverse))
-    ref = np.linalg.solve(np.asarray(M, np.float64), np.asarray(R, np.float64))
-    rel = np.abs(X - ref).max() / np.abs(ref).max()
-    # cond * eps_f32 ~ 1e4 * 6e-8: same error class as the inverse path.
-    assert rel <= 5e-3, rel
-
-
 def test_spd_solve_dispatcher():
     M = _spd((2,), 64, seed=6)
     rng = np.random.default_rng(7)
@@ -103,3 +73,53 @@ def test_spd_solve_dispatcher():
     X = np.asarray(linalg.spd_solve(M, R))
     ref = np.linalg.solve(M, R)
     assert np.abs(X - ref).max() / np.abs(ref).max() <= 1e-9
+
+
+# The factor's real shapes: n up to the headline 512, RHS width 1 (g alone)
+# and m + 1 = 257 ([A' q] at m=256), odd n (65: the blocked recursion's
+# Cholesky fallback), and 0/1/2 batch axes.
+SPD_N = [8, 64, 65, 128, 512]
+SPD_BATCH = [(), (3,), (2, 3)]
+SPD_DTYPE = [np.float32, np.float64]
+#: Relative error bars: ~cond * eps for these well-conditioned matrices
+#: (cond <= ~400 with the n * 0.01 shift and n <= 512).
+SPD_TOL = {np.float32: 2e-4, np.float64: 1e-9}
+
+
+def _spd_cast(batch, n, dtype, seed):
+    # Normalized so the spectrum sits in [0.01, ~4] at every n.
+    return (_spd(batch, n, seed=seed) / n).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", SPD_DTYPE, ids=["f32", "f64"])
+@pytest.mark.parametrize("batch", SPD_BATCH, ids=str)
+@pytest.mark.parametrize("k", [1, 257])
+@pytest.mark.parametrize("n", SPD_N)
+def test_spd_solve_matches_numpy(n, k, batch, dtype):
+    """Cholesky + cho_solve multi-RHS solve against numpy in f64."""
+    import jax.numpy as jnp
+
+    M = _spd_cast(batch, n, dtype, seed=n + k)
+    R = np.random.default_rng(k).standard_normal(batch + (n, k)).astype(dtype)
+    X = np.asarray(linalg.spd_solve(jnp.asarray(M), jnp.asarray(R)))
+    assert X.shape == batch + (n, k) and X.dtype == dtype
+    ref = np.linalg.solve(M.astype(np.float64), R.astype(np.float64))
+    rel = np.abs(X - ref).max() / np.abs(ref).max()
+    assert rel <= SPD_TOL[dtype], rel
+
+
+@pytest.mark.parametrize("dtype", SPD_DTYPE, ids=["f32", "f64"])
+@pytest.mark.parametrize("batch", SPD_BATCH, ids=str)
+@pytest.mark.parametrize("n", SPD_N)
+def test_spd_inverse_blocked_vs_numpy(n, batch, dtype):
+    """Blocked-Schur inverse (recursion for even n > 64, Cholesky base
+    otherwise) against numpy in f64; the result is exactly symmetric."""
+    import jax.numpy as jnp
+
+    M = _spd_cast(batch, n, dtype, seed=n)
+    inv = np.asarray(linalg.spd_inverse_blocked(jnp.asarray(M)))
+    assert inv.shape == batch + (n, n) and inv.dtype == dtype
+    ref = np.linalg.inv(M.astype(np.float64))
+    rel = np.abs(inv - ref).max() / np.abs(ref).max()
+    assert rel <= SPD_TOL[dtype], rel
+    assert np.array_equal(inv, np.swapaxes(inv, -1, -2))

@@ -10,12 +10,12 @@ must be flagged non-optimal by the solver — PRIMAL/DUAL_INFEASIBLE or
 MAX_ITERATIONS, never a silent wrong answer.
 
 The n=100 row additionally runs through every KKT backend (CHOLESKY,
-KKT_LDL, CG, KKT_MINRES) per VERDICT item 5 — the reference runs its sweep
+KKT_LDL, CG, KKT_MINRES) — the reference runs its sweep
 through its default backend only (RunTests.jl:55-56).
 
 Device solves are batched: each (class, size) stacks its 10 seeds into one
-fleet so the sweep compiles one program per shape/backend — the TPU-native
-fleet mechanism is itself under test.
+fleet so the sweep compiles one program per shape/backend — the fleet
+mechanism is itself under test.
 """
 
 import numpy as np

@@ -1,10 +1,8 @@
-"""Execution-plan introspection + require_fused strict mode.
+"""Execution-plan introspection (models/plan.py).
 
-Pins the round-4 footguns structurally: (a) the headline bench knob stacks
-must plan onto the fused Pallas paths (the split_cache misattribution), and
-(b) a settings stack whose fused path silently falls back must be loudly
-detectable (the vacuous chunk-test incident). Plans are static, so these
-tests run on CPU against shape-only problems.
+Plans are static, so most of these tests run against shape-only problems;
+the property grid checks that the plan names the cache the solver actually
+builds, and that every (shape, settings) pair solves.
 """
 
 import dataclasses
@@ -15,6 +13,7 @@ import numpy as np
 import pytest
 
 import quadraticprogramsolver_tpu as qps
+from quadraticprogramsolver_tpu.models import kkt as kkt_mod
 from quadraticprogramsolver_tpu.models import plan as plan_mod
 
 
@@ -33,54 +32,22 @@ def shape_prox(B, n, me, mi, dtype=jnp.float32):
         b=s((B, me), dtype), C=s((B, mi, n), dtype), d=s((B, mi), dtype))
 
 
-FUSED = qps.Settings(fused_chunk=True, sigma_free_rhs=True,
-                     kkt_refinement_steps=0, fused_factor=True)
+def _smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 class TestPlanAdmm:
-    def test_fully_fused(self):
-        p = plan_mod.plan(shape_qp(8, 128, 128), FUSED)
-        assert p.chunk == "fused_pallas"
-        assert p.factor == "fused_slab"
-        assert p.cache == "G_g"
-        assert p.fallback_reasons == ()
-
-    def test_f64_falls_back(self):
-        p = plan_mod.plan(shape_qp(8, 128, 128, jnp.float64), FUSED)
-        assert p.chunk == "xla"
-        assert any("float32" in r for r in p.fallback_reasons)
-
-    def test_lane_divisibility_fallback(self):
-        st = dataclasses.replace(FUSED, chunk_lanes=4)
-        p = plan_mod.plan(shape_qp(6, 128, 128), st)
-        assert p.chunk == "fused_pallas" and p.lanes == 1
-        assert any("does not divide" in r for r in p.fallback_reasons)
-
-    def test_vmem_gate_measured_boundaries(self):
-        """The on-chip compile-fit boundaries at n=512, m=256 (round 4)."""
-        qp = shape_qp(4096, 512, 256)
-        ok = lambda st: plan_mod.plan(qp, st).chunk == "fused_pallas"
-        assert ok(dataclasses.replace(FUSED, chunk_lanes=4))          # fits
-        assert not ok(dataclasses.replace(FUSED, chunk_lanes=8))      # VMEM
-        assert ok(dataclasses.replace(FUSED, chunk_lanes=2,
-                                      chunk_dot_precision="high"))    # fits
-        assert not ok(dataclasses.replace(FUSED, chunk_lanes=4,
-                                          chunk_dot_precision="high"))  # VMEM
-
-    def test_autopad_plan(self):
-        p = plan_mod.plan(shape_qp(8, 100, 60), FUSED)
-        assert p.padded == (128, 128)
-        assert p.chunk == "fused_pallas"
-
-    def test_autopad_inflation_rejected(self):
-        p = plan_mod.plan(shape_qp(8, 16, 8), FUSED)
-        assert p.padded is None and p.chunk == "xla"
-        assert any("inflation" in r for r in p.fallback_reasons)
-
     def test_default_settings_plan_xla(self):
         p = plan_mod.plan(shape_qp(8, 100, 50), qps.Settings())
-        assert p.chunk == "xla" and p.factor == "xla_inverse"
-        assert p.cache == "M_inv" and p.fallback_reasons == ()
+        assert p.backend == "cholesky" and p.factor == "inverse"
+        assert p.cache == "M_inv"
 
     def test_sparse_cg_plan(self):
         import scipy.sparse as sp
@@ -95,171 +62,70 @@ class TestPlanAdmm:
         p = plan_mod.plan(sqp, qps.Settings())
         assert p.backend == "cg" and p.factor == "jacobi_diag"
 
+    def test_headline_stack_plans_cholesky_solve(self):
+        """The tuned stack of chip_smoke.py phase 1 and bench.py factors
+        by the Cholesky multi-RHS solve into the {G, g} cache."""
+        p = plan_mod.plan(shape_qp(4096, 512, 256),
+                          _smoke().headline_settings())
+        assert (p.backend, p.factor, p.cache) == (
+            "cholesky", "cholesky_solve", "G_g")
+
 
 class TestPlanProx:
-    FUSED_P = qps.ProxQPSettings(fused_chunk=True, sigma_free_rhs=True,
-                                 kkt_refinement_steps=0)
-
-    def test_fully_fused(self):
-        p = plan_mod.plan_proxqp(shape_prox(8, 128, 128, 128), self.FUSED_P)
-        assert p.chunk == "fused_pallas" and p.factor == "fused_slab"
-        assert p.cache == "Ga_Gc_g" and p.fallback_reasons == ()
-
-    def test_pad_plan_and_dims(self):
-        p = plan_mod.plan_proxqp(shape_prox(8, 100, 4, 8), self.FUSED_P)
-        assert p.padded == (128, 128, 128)
-        assert p.chunk == "fused_pallas"
-
-    def test_f64_and_lane_fallbacks(self):
-        p = plan_mod.plan_proxqp(shape_prox(8, 128, 128, 128, jnp.float64),
-                                 self.FUSED_P)
-        assert p.chunk == "xla"
-        assert any("float32" in r for r in p.fallback_reasons)
-        st = dataclasses.replace(self.FUSED_P, chunk_lanes=4)
-        p = plan_mod.plan_proxqp(shape_prox(6, 128, 128, 128), st)
-        assert p.lanes == 1
-        assert any("does not divide" in r for r in p.fallback_reasons)
-
     def test_dense_m_inv_plan(self):
         p = plan_mod.plan_proxqp(shape_prox(4, 30, 4, 8),
                                  qps.ProxQPSettings())
-        assert p.chunk == "xla" and p.factor == "xla_inverse"
-        assert p.cache == "M_inv" and p.fallback_reasons == ()
+        assert p.factor == "inverse" and p.cache == "M_inv"
+
+    def test_headline_stack_plans_cholesky_solve(self):
+        p = plan_mod.plan_proxqp(shape_prox(4096, 512, 128, 128),
+                                 _smoke().prox_headline_settings())
+        assert (p.backend, p.factor, p.cache) == (
+            "prox_alm", "cholesky_solve", "Ga_Gc_g")
 
 
-class TestRequireFused:
-    def test_raises_on_silent_fallback(self):
-        st = dataclasses.replace(FUSED, require_fused=True)
-        qp = shape_qp(8, 128, 128, jnp.float64)
-        with pytest.raises(ValueError, match="require_fused"):
-            qps.solve(qp, st)
-
-    def test_raises_on_lane_fallback(self):
-        st = dataclasses.replace(FUSED, require_fused=True, chunk_lanes=4)
-        with pytest.raises(ValueError, match="does not divide"):
-            qps.solve(shape_qp(6, 128, 128), st)
-
-    def test_passes_and_solves_on_fused_path(self):
-        # Real solve (interpret-mode Pallas on CPU) — strict mode must not
-        # reject the genuinely-fused configuration.
-        qp = qps.generate_batch(qps.ProblemClass.RANDOM_QP, batch=4,
-                                num_elements=128, num_constraints=128,
-                                seed=0, dtype=np.float32)
-        st = dataclasses.replace(
-            FUSED, require_fused=True, adaptive_rho=True, rho=0.1,
-            eps_abs=1e-4, eps_rel=1e-4, max_iterations=500)
-        sol = qps.solve_jit(qp, st)
-        assert (np.asarray(sol.info.status) >= 1).all()
-
-    def test_prox_raises_on_fallback(self):
-        st = qps.ProxQPSettings(fused_chunk=True, require_fused=True)
-        prob = shape_prox(8, 128, 128, 128, jnp.float64)
-        with pytest.raises(ValueError, match="require_fused"):
-            qps.solve_proxqp(prob, st)
-
-
-class TestEagerPrePad:
-    def test_solve_jit_pads_eagerly_outside_program(self):
-        """Concrete unaligned fleets are padded by a separate small program
-        before the solve dispatch (the round-4 max-HBM OOM fix); results
-        carry the original shapes."""
-        qp = qps.generate_batch(qps.ProblemClass.RANDOM_QP, batch=4,
-                                num_elements=100, num_constraints=60,
-                                seed=2, dtype=np.float32)
-        st = dataclasses.replace(FUSED, rho=0.1, eps_abs=1e-4, eps_rel=1e-4,
-                                 max_iterations=800)
-        assert plan_mod.plan(qp, st).padded == (128, 128)
-        sol = qps.solve_jit(qp, st)
-        assert sol.x.shape == (4, 100) and sol.z.shape == (4, 60)
-        assert (np.asarray(sol.info.status) >= 1).all()
-        # Equivalent in-jit pad (traced caller) must agree on the solution.
-        sol_traced = jax.jit(qps.solve, static_argnames=("settings",))(qp, st)
-        dev = np.abs(np.asarray(sol.x) - np.asarray(sol_traced.x)).max()
-        assert dev < 1e-5, dev
+GRID_SHAPES = [(1, 128, 128), (4, 128, 128), (3, 100, 60), (2, 16, 8),
+               (6, 128, 128), (2, 30, 0)]
+_BASE = dict(max_iterations=300, eps_abs=1e-4, eps_rel=1e-4, rho=0.1)
+GRID_STACKS = {
+    "default": qps.Settings(**_BASE),
+    "sigma_free_headline": dataclasses.replace(
+        _smoke().headline_settings(), **_BASE),
+    "kkt_ldl": qps.Settings(**_BASE, kkt_backend=qps.KKTBackendKind.KKT_LDL),
+}
+#: Cache leaves each planned layout holds.
+CACHE_KEYS = {"G_g": {"G", "g"}, "M_inv": {"M_inv"}, "L_d": {"L", "d"}}
 
 
 class TestPlanPropertyGrid:
-    """Plan/solve consistency across a shape x settings grid: plan() must
-    never raise, require_fused must agree with plan.fallback_reasons, and
-    every combination must actually solve (statuses valid)."""
+    """Plan/solve consistency across a shape x settings grid."""
 
-    SHAPES = [(1, 128, 128), (4, 128, 128), (3, 100, 60), (2, 16, 8),
-              (6, 128, 128), (2, 30, 0)]
-    STACKS = [
-        qps.Settings(max_iterations=300, eps_abs=1e-4, eps_rel=1e-4, rho=0.1),
-        dataclasses.replace(FUSED, max_iterations=300, rho=0.1,
-                            eps_abs=1e-4, eps_rel=1e-4),
-        dataclasses.replace(FUSED, max_iterations=300, rho=0.1,
-                            eps_abs=1e-4, eps_rel=1e-4, chunk_lanes=2,
-                            chunk_dot_precision="high"),
-        qps.Settings(max_iterations=300, eps_abs=1e-4, eps_rel=1e-4, rho=0.1,
-                     kkt_backend=qps.KKTBackendKind.KKT_LDL),
-    ]
-
-    def test_grid(self):
+    @pytest.mark.parametrize(
+        "shape,stack",
+        [(shape, stack) for shape in GRID_SHAPES for stack in GRID_STACKS
+         # An empty KKT block has no LDL factor; CHOLESKY covers m=0.
+         if not (stack == "kkt_ldl" and shape[2] == 0)])
+    def test_grid(self, shape, stack):
+        """Plan/solve consistency: plan() never raises, names the cache the
+        backend builds, and the solve ends with valid statuses and finite x."""
+        B, n, m = shape
+        st = GRID_STACKS[stack]
         rng = np.random.default_rng(0)
-        for B, n, m in self.SHAPES:
-            M = rng.standard_normal((B, n, n)).astype(np.float32)
-            P = (np.einsum("bki,bkj->bij", M, M) / n
-                 + 0.1 * np.eye(n, dtype=np.float32))
-            A = rng.standard_normal((B, m, n)).astype(np.float32)
-            l = -(rng.random((B, m)).astype(np.float32) + 0.5)
-            u = rng.random((B, m)).astype(np.float32) + 0.5
-            qp = qps.QP(P=jnp.asarray(P),
-                        q=jnp.asarray(rng.standard_normal((B, n)).astype(np.float32)),
-                        A=jnp.asarray(A), l=jnp.asarray(l), u=jnp.asarray(u))
-            for st in self.STACKS:
-                if st.kkt_backend is qps.KKTBackendKind.KKT_LDL and m == 0:
-                    continue  # empty KKT block; CHOLESKY covers m=0
-                p = plan_mod.plan(qp, st)  # must never raise
-                strict = dataclasses.replace(st, require_fused=True)
-                if p.fallback_reasons:
-                    with pytest.raises(ValueError, match="require_fused"):
-                        qps.solve(qp, strict)
-                else:
-                    sol = qps.solve_jit(qp, strict)
-                    assert (np.asarray(sol.info.status) >= 1).all()
-                sol = qps.solve_jit(qp, st)
-                status = np.asarray(sol.info.status)
-                assert ((status >= 1) & (status <= 5)).all(), (B, n, m, st)
-                assert np.isfinite(np.asarray(sol.x)).all(), (B, n, m, st)
-
-
-class TestHeadlineStacksStayFused:
-    """The bench.py knob ladder must plan fully-fused on the bench shapes.
-
-    This is the structural fix for the round-4 misattributions: if a future
-    edit breaks any gate the headline stack relies on, this fails on CPU
-    before the chip ever runs.
-    """
-
-    def _bench(self):
-        import importlib.util
-        import os
-
-        path = os.path.join(os.path.dirname(__file__), "..", "bench.py")
-        spec = importlib.util.spec_from_file_location("bench", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod
-
-    def test_ladder_plans_fused_on_tpu_settings(self):
-        bench = self._bench()
-        settings, slab_settings, slab_hi = bench.headline_settings(True)
-        for B in (4096, 3072, 2048):
-            qp = shape_qp(B, bench.N, bench.M)
-            for st in (settings, slab_settings, slab_hi):
-                p = plan_mod.plan(qp, st)
-                assert p.chunk == "fused_pallas", (B, st, p)
-                assert p.factor == "fused_slab", (B, st, p)
-                assert p.fallback_reasons == (), (B, st, p)
-                assert p.lanes == st.chunk_lanes
-            assert plan_mod.plan(qp, slab_settings).cache == "slab"
-            assert plan_mod.plan(qp, slab_settings).dot_precision == "high"
-
-    def test_cpu_settings_have_no_fused_requests(self):
-        bench = self._bench()
-        settings, slab_settings, _ = bench.headline_settings(False)
-        assert not settings.fused_chunk and not settings.require_fused
-        p = plan_mod.plan(shape_qp(2048, bench.N, bench.M), settings)
-        assert p.fallback_reasons == ()
+        M = rng.standard_normal((B, n, n)).astype(np.float32)
+        P = (np.einsum("bki,bkj->bij", M, M) / n
+             + 0.1 * np.eye(n, dtype=np.float32))
+        A = rng.standard_normal((B, m, n)).astype(np.float32)
+        l = -(rng.random((B, m)).astype(np.float32) + 0.5)
+        u = rng.random((B, m)).astype(np.float32) + 0.5
+        qp = qps.QP(P=jnp.asarray(P),
+                    q=jnp.asarray(rng.standard_normal((B, n)).astype(np.float32)),
+                    A=jnp.asarray(A), l=jnp.asarray(l), u=jnp.asarray(u))
+        p = plan_mod.plan(qp, st)
+        backend = kkt_mod.get_backend(st.kkt_backend, qp)
+        rho = jnp.full((B,), st.rho, jnp.float32)
+        sigma = jnp.asarray(st.sigma_for(jnp.float32), jnp.float32)
+        assert set(backend.init(qp, rho, sigma, st)) == CACHE_KEYS[p.cache]
+        sol = qps.solve_jit(qp, st)
+        status = np.asarray(sol.info.status)
+        assert ((status >= 1) & (status <= 5)).all(), (shape, stack)
+        assert np.isfinite(np.asarray(sol.x)).all(), (shape, stack)

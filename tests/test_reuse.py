@@ -119,11 +119,6 @@ class TestPreparedFactor:
         qp = fleet(dtype=np.float32)
         with pytest.raises(ValueError, match="scaling"):
             admm.prepare(qp, dataclasses.replace(SET, scaling_iters=2))
-        st_slab = qps.Settings(adaptive_rho=False, sigma_free_rhs=True,
-                               kkt_refinement_steps=0, fused_chunk=True,
-                               fused_factor=True, slab_cache=True)
-        with pytest.raises(ValueError, match="slab"):
-            admm.prepare(qp, st_slab)
         with pytest.raises(ValueError, match="scaling|equilibration"):
             qps.solve(qp, dataclasses.replace(SET, scaling_iters=2),
                       prepared=admm.prepare(qp, SET))
